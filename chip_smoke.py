@@ -1,8 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels from the sources in this checkout, holds each against its plain
-torch version on the card, drives the route-and-simulate main path at
-full size (PT 8x8x8 and the synthesized TONS_SYM 256 fabric), checks the
-simulator's CUDA and CPU runs agree, and prints one JSON line per result.
+kernels from the sources in this checkout (both at once), holds each
+against its plain torch version on the card, drives the two main paths
+at full size -- route-and-simulate (PT 8x8x8 and the synthesized
+TONS_SYM 256 fabric) and serving (qwen2.5-3b at its published widths,
+8 ragged requests through the port's ``Server``) -- checks that the
+simulator's and the model's CUDA and CPU runs agree, and prints one JSON
+line per result.
 
     python3 chip_smoke.py
 
@@ -13,11 +16,14 @@ of JAX or of the JAX package ``repro``. The last line of the output is
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +35,17 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published H100 SXM memory rate (HBM3).
 PEAK_BYTES = 3.35e12
 FP32_LANES_PER_SM = 128
+# dense BF16 tensor-core flops per SM per clock (989 TFLOP/s published)
+BF16_FLOPS_PER_SM_CLOCK = 4096
+
+# the serving main path: qwen2.5-3b at its published config
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 2048, 8, 32
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the port's CPU and CUDA runs of one model: the reference's own tolerance
+# between two bf16 lowerings of one model (test_models.py, prefill/decode
+# against the full forward)
+MODEL_RTOL, MODEL_ATOL = 0.06, 0.15
 
 
 def check(cond, msg):
@@ -166,6 +183,214 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
     return rows, max_err
 
 
+def serve_prompts(vocab: int):
+    """The serving phase's 8 prompts: lengths 128-1024 and tokens from
+    ``default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, int(n)) for n in lens]
+
+
+def flash_bound_ms(B, Hq, Hkv, Sq, Skv, hd, itemsize, causal,
+                   flops_per_s) -> tuple:
+    """Least time for one attention: 4 * hd flops per visible (q, k) pair
+    (top-left causal: row i sees min(i + 1, Skv) keys) at the dense BF16
+    tensor-core rate, or q, k, v read once and o written once at the
+    memory rate; the larger, and which one it is."""
+    if causal:
+        n = min(Sq, Skv)
+        pairs = n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+    else:
+        pairs = Sq * Skv
+    t_ops = 4.0 * B * Hq * hd * pairs / flops_per_s * 1e3
+    t_bytes = itemsize * hd * B * (2 * Hq * Sq + 2 * Hkv * Skv) \
+        / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _attn_inputs(g, B, Hq, Hkv, Sq, Skv, hd, dtype, model_layout=False):
+    """Normal q, k, v on the generator's device; with ``model_layout`` as
+    the serving path hands them over: (B, S, H, hd) activations viewed as
+    (B, H, S, hd)."""
+    dev = g.device
+
+    def one(H, S):
+        if model_layout:
+            return torch.randn((B, S, H, hd), generator=g, device=dev,
+                               dtype=torch.float32).to(dtype).transpose(1, 2)
+        return torch.randn((B, H, S, hd), generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
+    return one(Hq, Sq), one(Hkv, Skv), one(Hkv, Skv)
+
+
+def phase_flash(fa, ref, prompt_lens, flops_per_s, dev="cuda"):
+    """The flash kernel against its plain version at test_kernels.py's
+    sweep, the non-causal and Sq < Skv cases and the serving shapes (the
+    serve phase's prompt lengths among them), then timed at S = 2048 and
+    4096 beside the plain version and PyTorch's SDPA."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((1, Hq, Hkv, S, S, hd), dt, True, False)
+             for S in (128, 256) for hd in (64, 128)
+             for Hq, Hkv in ((4, 4), (4, 2), (8, 1)) for dt in (f32, bf16)]
+    cases += [((2, 4, 2, 128, 256, 64), f32, False, False),
+              ((1, 4, 2, 128, 256, 64), f32, True, False)]
+    cases += [((1, 16, 2, S, S, 128), bf16, True, True)
+              for S in sorted({100, 512, 1000, 2048, *prompt_lens})]
+    max_err = {f32: 0.0, bf16: 0.0}
+    for shape, dt, causal, layout in cases:
+        q, k, v = _attn_inputs(g, *shape, dt, model_layout=layout)
+        got = fa.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal)
+        err = float((got.float() - want.float()).abs().max())
+        max_err[dt] = max(max_err[dt], err)
+        tol = FLASH_TOL[dt]
+        check(got.dtype == dt and got.shape == q.shape
+              and torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+              f"flash {shape} {dt} causal={causal} differs, max err {err}")
+        emit(phase="flash_parity", shape=list(shape), dtype=str(dt),
+             causal=causal, model_layout=layout, max_abs_err=err, tol=tol)
+
+    rows = {}
+    for S in (2048, 4096):
+        q, k, v = _attn_inputs(g, 1, 16, 2, S, S, 128, bf16,
+                               model_layout=True)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True), 20)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True), 5)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        bound, by = flash_bound_ms(1, 16, 2, S, S, 128, 2, True,
+                                   flops_per_s)
+        rows[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound, bound_by=by)
+        emit(phase="flash_time", shape=[1, 16, 2, S, S, 128],
+             dtype="bfloat16", causal=True, launches_timed=20, **rows[S])
+    return rows, max_err
+
+
+def phase_serve(fa, PM, Request, Server, cfg, dev="cuda"):
+    """The serving main path at full width: random weights from seed 0 on
+    the card, 8 ragged requests through ``Server.run``."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PM.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_max_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()          # the serving footprint
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    server = Server(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                    device=dev)
+    reqs = [Request(i, p, SERVE_MAX_NEW)
+            for i, p in enumerate(serve_prompts(cfg.vocab))]
+
+    prefill_s, decode_ms, finite = [], [], []
+    prefill_one, decode = server._prefill_one, server._decode
+
+    def timed_prefill(slot, req):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill_one(slot, req)            # ends in a host read of the token
+        prefill_s.append(time.perf_counter() - t)
+
+    def timed_decode(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = decode(*a)
+        finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        return logits, caches
+
+    server._prefill_one, server._decode = timed_prefill, timed_decode
+    fa.launches = 0                                   # the main path
+    t0 = time.perf_counter()
+    out = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    tokens = sum(len(v) for v in out["results"].values())
+    all_finite = bool(torch.stack(finite).all())
+    emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+         prompt_lens=[len(r.prompt) for r in reqs], max_new=SERVE_MAX_NEW,
+         served=out["served"], decode_steps=out["decode_steps"],
+         tokens=tokens, wall_s=wall, prefill_s=sum(prefill_s),
+         prefill_s_each=prefill_s,
+         decode_ms_median=float(np.median(decode_ms)),
+         tok_per_s=tokens / wall, flash_launches=launches,
+         init_s=init_s, init_max_memory_gb=init_max_gb,
+         n_params=n_params, param_gb=param_gb,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         decode_logits_finite=all_finite)
+    check(out["served"] == SERVE_REQUESTS,
+          f"served {out['served']} of {SERVE_REQUESTS}")
+    check(all(len(v) == SERVE_MAX_NEW + 1 and
+              all(0 <= t < cfg.vocab for t in v)
+              for v in out["results"].values()), "token streams malformed")
+    check(launches == cfg.n_layers * SERVE_REQUESTS,
+          f"flash launches {launches}, want {cfg.n_layers} x "
+          f"{SERVE_REQUESTS}")
+    check(all_finite, "non-finite decode logits")
+
+    # where a step's time goes: one prefill of the longest prompt and 3
+    # decode steps under the profiler, after the main path's count
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    tokens_in = torch.as_tensor(longest.prompt, device=dev)[None, :]
+    pos = int(server.pos.max())
+    with torch.inference_mode():
+        pre = busy_share(lambda: PM.prefill_fn(
+            cfg, params, {"tokens": tokens_in}, cache_len=SERVE_MAX_LEN))
+        dec = busy_share(lambda: decode(params, server.caches,
+                                        server.tokens, pos), reps=3)
+    emit(phase="serve_profile", prefill_tokens=len(longest.prompt),
+         prefill=pre, decode_steps=3, decode=dec,
+         decode_kernels_per_step=dec["kernels"] / 3,
+         decode_ms_per_step=dec["wall_s"] / 3 * 1e3)
+    return launches
+
+
+def phase_serve_cpu_vs_gpu(PM, cfg, dev="cuda"):
+    """One set of weights at full width, depth 2: prefill of a ragged
+    100-token prompt and 3 teacher-forced decode steps on the CPU (plain
+    attention) and on CUDA (the kernel); logits agree within the stated
+    bf16 tolerance."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cpu = PM.init_params(cfg2, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 104)))
+    S = 100
+    errs, agree = [], []
+    with torch.inference_mode():
+        outs = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            t = toks.to(d)
+            logits, caches = PM.prefill_fn(cfg2, model,
+                                           {"tokens": t[:, :S]},
+                                           cache_len=104)
+            steps = [logits]
+            for i in range(3):
+                logits, caches = PM.decode_fn(cfg2, model, caches,
+                                              t[:, S + i:S + i + 1], S + i)
+                steps.append(logits)
+            outs.append([x.float().cpu() for x in steps])
+    for c, g in zip(*outs):
+        errs.append(float((c - g).abs().max()))
+        agree.append(int(c.argmax()) == int(g.argmax()))
+        check(torch.allclose(g, c, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+              f"CPU and CUDA logits differ by {errs[-1]}")
+    emit(phase="serve_cpu_vs_gpu", arch=cfg.name, n_layers=2,
+         prompt_len=S, decode_steps=3, max_abs_err=errs,
+         argmax_agree=agree, rtol=MODEL_RTOL, atol=MODEL_ATOL,
+         logit_abs_max=float(outs[0][0].abs().max()))
+
+
 def drive(name, topo, PNS, route_pod):
     """route_pod + saturation_point at the defaults, on the card."""
     t0 = time.perf_counter()
@@ -194,19 +419,19 @@ def drive(name, topo, PNS, route_pod):
     return rp
 
 
-def busy_share(PNS, tables, rates, cycles: int) -> dict:
-    """Device busy share of a sweep: the union of its CUDA kernels' time
-    intervals in a profiler trace, over the sweep's host wall time."""
+def busy_share(fn, reps: int = 1) -> dict:
+    """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
+    the union of their CUDA kernels' time intervals in a profiler trace,
+    over the calls' host wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    PNS.sweep(tables, rates, cycles=cycles, warmup=cycles // 2,
-              device="cuda")                                 # warm-up
+    fn()                                                     # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        PNS.sweep(tables, rates, cycles=cycles, warmup=cycles // 2,
-                  device="cuda")
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -218,8 +443,7 @@ def busy_share(PNS, tables, rates, cycles: int) -> dict:
             busy += b - max(a, end)
             end = b
     return dict(wall_s=wall, device_busy_s=busy / 1e6,
-                busy_share=busy / 1e6 / wall, kernels=len(spans),
-                kernels_per_cycle=len(spans) / cycles)
+                busy_share=busy / 1e6 / wall, kernels=len(spans))
 
 
 def main() -> int:
@@ -228,9 +452,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch import convert
+    from repro_torch.configs.registry import get_config
     from repro_torch.core import netsim as PNS, topology as PT
     from repro_torch.core.pipeline import route_pod
-    from repro_torch.kernels import minplus as mp, ops, ref
+    from repro_torch.kernels import flash_attention as fa, minplus as mp, \
+        ops, ref
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as PM
 
     name = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
@@ -239,16 +467,21 @@ def main() -> int:
     # one FP32 instruction per lane per clock: (min,+) has no FMA, so this
     # is half the published FP32 FLOP/s, which counts an FMA as two
     ops_per_s = sm_clock_hz * sms * FP32_LANES_PER_SM
+    bf16_flops_per_s = sm_clock_hz * sms * BF16_FLOPS_PER_SM_CLOCK
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
          device=name, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=card, max_sm_clock_mhz=sm_clock_hz / 1e6, sms=sms,
-         fp32_instr_per_s=ops_per_s)
+         fp32_instr_per_s=ops_per_s, bf16_flops_per_s=bf16_flops_per_s)
     print(card, flush=True)
 
+    # one nvcc per kernel source, both started together
     t0 = time.perf_counter()
-    mp.library()
-    emit(phase="build", kernel="minplus", seconds=time.perf_counter() - t0,
-         nvcc_seconds=mp.build_seconds)
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(k.library) for k in (mp, fa)]:
+            f.result()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         nvcc_seconds={"minplus": mp.build_seconds,
+                       "flash_attention": fa.build_seconds})
 
     tons = convert.load_fabric(
         ROOT / "benchmarks" / "results" / "tons_256.pkl", (4, 8, 8),
@@ -267,9 +500,11 @@ def main() -> int:
     check(launches > launches_8, "TONS_SYM 256 never launched minplus")
 
     # ---- where a sweep's time goes: device busy share under the profiler ----
+    rates = [0.03 * (i + 1) for i in range(10)]
+    prof = busy_share(lambda: PNS.sweep(rp8.tables, rates, cycles=512,
+                                        warmup=256, device="cuda"))
     emit(phase="sweep_profile", fabric="PT 8x8x8", lanes=10, cycles=512,
-         **busy_share(PNS, rp8.tables, [0.03 * (i + 1) for i in range(10)],
-                      512))
+         kernels_per_cycle=prof["kernels"] / 512, **prof)
 
     # ---- the simulator is deterministic across devices ---------------------
     rp = route_pod(PT.pt((4, 4, 8)), device="cuda")
@@ -282,7 +517,16 @@ def main() -> int:
     emit(phase="device_determinism", fabric="PT 4x4x8", rates=rates,
          cycles=1200, equal=True)
 
-    k = rows[512]
+    # ---- the serving path: flash kernel first, then the main path ----------
+    cfg = get_config(SERVE_ARCH).model
+    prompt_lens = sorted({len(p) for p in serve_prompts(cfg.vocab)})
+    flash_rows, flash_err = phase_flash(fa, ref, prompt_lens,
+                                        bf16_flops_per_s)
+    flash_launches = phase_serve(fa, PM, Request, Server, cfg)
+    torch.cuda.empty_cache()
+    phase_serve_cpu_vs_gpu(PM, cfg)
+
+    k, f = rows[512], flash_rows[2048]
     print(json.dumps({"kernels": [{
         "name": "minplus", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/minplus.cu",
@@ -290,7 +534,18 @@ def main() -> int:
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
         "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:24",
+        "launches": flash_launches,
+        "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
+        "max_abs_err": flash_err[torch.bfloat16],
+        "max_abs_err_f32": flash_err[torch.float32],
+        "shape": [1, 16, 2, 2048, 2048, 128],
+        "ms": f["ms"], "plain_ms": f["plain_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": f["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,23 +1,27 @@
-"""Carry fabrics and routed tables into the port as plain arrays.
+"""Carry fabrics, routed tables and model weights into the port as plain
+arrays.
 
-The system has no weights: what crosses over is the fabric and its
-simulator tables. Both enter as numpy arrays, so nothing here needs the
-JAX package -- the synthesized fabrics in ``benchmarks/results/*.pkl``
-are plain dicts with an ``optical`` list, and a reference ``SimTables``
-converts through :func:`sim_tables_from_arrays` with a dict of its
-fields.
+Everything enters as numpy arrays, so nothing here needs the JAX
+package: the synthesized fabrics in ``benchmarks/results/*.pkl`` are
+plain dicts with an ``optical`` list, a reference ``SimTables`` converts
+through :func:`sim_tables_from_arrays` with a dict of its fields, and a
+JAX LM's parameter tree converts through :func:`lm_params_from_jax`
+after ``np.asarray`` on each leaf.
 """
 from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.netsim import SimTables
 from repro_torch.core.pathtable import CSRPathTable
 from repro_torch.core.topology import Pod, Topology
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import DecoderLM
 
 SIM_TABLE_KEYS = ("n", "n_ch", "n_vc", "ch_dst", "src_indptr", "dst",
                   "hop_indptr", "chan", "vc")
@@ -62,3 +66,52 @@ def sim_tables_from_arrays(d: Mapping[str, object]) -> SimTables:
     if len(ch_dst) != n_ch:
         raise ValueError(f"ch_dst has {len(ch_dst)} entries, n_ch={n_ch}")
     return SimTables(n, n_ch, n_vc, ch_dst, table)
+
+
+def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s values. bfloat16 arrays
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) cross as
+    their 16-bit patterns, so the conversion is bit-exact."""
+    arr = np.array(arr, order="C")      # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def lm_params_from_jax(cfg, params: Mapping, device=None) -> DecoderLM:
+    """The port's :class:`DecoderLM` (dense family) holding the weights
+    of a reference LM parameter tree (``repro.models.lm.init_params``
+    layout, leaves as numpy arrays). The ``blocks`` subtree is stacked
+    over a leading layer axis there and is unstacked into
+    ``blocks.{i}``. Raises on a missing, extra or misshapen leaf."""
+    model = DecoderLM(cfg, resolve_device(device))
+    state = {}
+    for name, arr in _flatten(params).items():
+        if name.startswith("blocks."):
+            for i in range(arr.shape[0]):
+                state[f"blocks.{i}.{name[len('blocks.'):]}"] = arr[i]
+        else:
+            state[name] = arr
+    want = dict(model.named_parameters())
+    if set(state) != set(want):
+        raise KeyError(f"parameter trees differ: missing "
+                       f"{sorted(set(want) - set(state))}, extra "
+                       f"{sorted(set(state) - set(want))}")
+    for name, p in want.items():
+        t = tensor_from_numpy(state[name])
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
+                             f"the port holds {tuple(p.shape)} {p.dtype}")
+        p.copy_(t)
+    return model

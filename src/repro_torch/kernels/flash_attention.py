@@ -1,0 +1,108 @@
+"""ctypes wrapper of the hand-written flash-attention kernel
+``csrc/flash_attention.cu``.
+
+The library is built at first use by :func:`nvcc.build` and loaded with
+ctypes. :func:`flash_attention` launches on PyTorch's current stream and
+counts its launches in ``launches``. Its tensors keep the reference's
+(B, H, S, hd) shape but may have any strides with ``hd`` contiguous, so
+the model passes transposed views of its (B, S, H, hd) activations and
+nothing is copied; the output takes the strides of ``q``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import nvcc
+
+SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+launches = 0          # kernel launches since the last reset
+build_seconds = None  # wall time of this process's nvcc run, if any
+_lib = None
+
+
+class Geometry(NamedTuple):
+    B: int
+    Hq: int
+    Hkv: int
+    Sq: int
+    Skv: int
+    hd: int
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Geometry:
+    """The kernel's shape, type and layout rules; raises ValueError on
+    anything it does not take. Device-free, so the CPU tests reach it."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes 4-d q, k, v (B, H, S, hd)")
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not agree")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"query heads {Hq} are no multiple of kv heads {Hkv}")
+    if min(B, Sq, Skv) == 0 or B * Hq > 65535 or max(Sq, Skv) >= 2 ** 31:
+        raise ValueError(f"flash_attention shape {(B, Hq, Sq, Skv)} out of "
+                         "range")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes one dtype of "
+                         f"{DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs head_dim contiguous")
+    return Geometry(B, Hq, Hkv, Sq, Skv, hd)
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    so, build_seconds = nvcc.build(SOURCE, "flash_attention")
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_float, i, i, p]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Blocked GQA attention on the GPU, the CUDA counterpart of the
+    Pallas ``flash_attention``: q (B, Hq, Sq, hd), k and v (B, Hkv, Skv,
+    hd), causal mask ``qpos >= kpos`` counted from 0 for both (top-left).
+    Float32 or bfloat16 on one CUDA device; the output has q's dtype."""
+    global launches
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or \
+            not (q.device == k.device == v.device):
+        raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    g = check_inputs(q, k, v)
+    out = torch.empty_like(q)          # dense q keeps its strides
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, out) for s in t.stride()[:3]])
+    lib = library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), g.hd, g.B, g.Hq, g.Hkv, g.Sq, g.Skv,
+        strides, 1.0 / math.sqrt(g.hd), int(causal), q.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out

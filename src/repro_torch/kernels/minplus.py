@@ -1,41 +1,23 @@
 """ctypes wrapper of the hand-written (min,+) kernel ``csrc/minplus.cu``.
 
-The library is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` beside this file (named by a hash of the source, so an edited
-kernel rebuilds), and loaded with ctypes: a plain C entry point, no
-PyTorch headers, so the build takes seconds. :func:`minplus` launches on
-PyTorch's current stream and counts its launches in ``launches``.
+The library is built at first use by :func:`nvcc.build` and loaded with
+ctypes. :func:`minplus` launches on PyTorch's current stream and counts
+its launches in ``launches``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc
+
 SOURCE = Path(__file__).parent / "csrc" / "minplus.cu"
-BUILD_DIR = Path(__file__).parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0          # kernel launches since the last reset
 build_seconds = None  # wall time of this process's nvcc run, if any
 _lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked on PATH and at {path}); "
-                           "the CUDA toolkit is needed to build the kernel")
-    return path
 
 
 def library() -> ctypes.CDLL:
@@ -43,21 +25,7 @@ def library() -> ctypes.CDLL:
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libminplus-{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = Path(tmp) / so.name
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(out, so)
-        build_seconds = time.perf_counter() - t0
+    so, build_seconds = nvcc.build(SOURCE, "minplus")
     lib = ctypes.CDLL(str(so))
     lib.minplus_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -12,10 +12,21 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import minplus as _mp, ref
+from repro_torch.kernels import flash_attention as _fa, minplus as _mp, ref
 
 BIG = 1e9             # "no path yet" in the hop matrix
 UNREACHABLE = 1e8     # distances at or above this are unreachable
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention, q (B, Hq, Sq, hd), k and v (B, Hkv, Skv, hd), with
+    the causal mask aligned top-left (``qpos >= kpos``)."""
+    if q.device.type == "cuda":
+        return _fa.flash_attention(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    raise ValueError(f"flash_attention has no path for device {q.device}")
 
 
 def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,33 @@ import torch
 
 # elements of the (M, kc, N) broadcast one chunk of minplus_ref may hold
 _CHUNK_ELEMS = 1 << 27
+NEG_INF = -1e30       # the flash kernels' masked score
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Materialised softmax attention with GQA head grouping, in f32.
+
+    q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd); head ``h`` reads kv head
+    ``h // (Hq / Hkv)``; any strides. Follows the Pallas kernel
+    ``repro.kernels.flash_attention._kernel``: scores from ``q * scale``
+    and ``k`` in f32, masked scores ``-1e30``, and the causal mask
+    ``qpos >= kpos`` with both counted from 0 (top-left). The JAX
+    ``ref.flash_attention_ref`` aligns it bottom-right instead; the two
+    agree when Sq == Skv (reference caveat R5 in ROADMAP.md). The output
+    has q's dtype.
+    """
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    if causal:
+        visible = torch.ones(Sq, Skv, dtype=torch.bool,
+                             device=q.device).tril()
+        s = s.masked_fill(~visible, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return o.reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
 def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
