@@ -401,9 +401,13 @@ def verify_deadlock_free(at: ATResult,
         if len(s) < 2:
             return True
         # consecutive positions within one flow: drop the pairs that
-        # straddle a flow boundary
+        # straddle a flow boundary. Zero-length (lost) flows put boundaries
+        # at 0 or len(s), which border no pair: the JAX package's version
+        # indexes past the mask on a trailing lost flow and drops the last
+        # pair on a leading one.
         m = np.ones(len(s) - 1, bool)
         starts = table.hop_indptr[1:-1]
+        starts = starts[(starts > 0) & (starts < len(s))]
         m[starts - 1] = False
         return bool(sg.has_edges(s[:-1][m], s[1:][m]).all())
     from repro_torch.core.pathtable import MAXHOP

@@ -71,3 +71,46 @@ def test_route_pod_defaults_to_cuda(monkeypatch):
         route_pod(PT.pt((4, 4, 4)))
     with pytest.raises(RuntimeError, match="CUDA"):
         PR.allowed_turns(PT.pt((4, 4, 4)))
+
+
+def _lose_flows(t, lost):
+    """``t`` with the flows in ``lost`` cut to zero length, as degraded
+    serving leaves disconnected pairs."""
+    lens = np.diff(t.hop_indptr)
+    keep = np.repeat(~np.isin(np.arange(len(lens)), lost), lens)
+    lens = np.where(np.isin(np.arange(len(lens)), lost), 0, lens)
+    hop_indptr = np.zeros_like(t.hop_indptr)
+    np.cumsum(lens, out=hop_indptr[1:])
+    return type(t)(t.n, t.n_ch, t.n_vc, t.src_indptr.copy(), t.dst.copy(),
+                   hop_indptr, t.chan[keep], t.vc[keep])
+
+
+@pytest.mark.parametrize("where", ["leading", "trailing", "both"])
+def test_verify_deadlock_free_on_lost_boundary_flows(where):
+    from repro.core.pathtable import CSRPathTable as RefCSR
+    from repro.core.vcalloc import verify_deadlock_free as ref_verify
+    from repro_torch.core.vcalloc import verify_deadlock_free
+
+    ref_topo, topo = _fabrics("pt_4x4x4")
+    want = ref_route_pod(ref_topo)
+    got = route_pod(topo, PipelineConfig(), device="cpu")
+    t = got.tables.table
+    lens = np.diff(t.hop_indptr)
+    last = int(np.nonzero(lens >= 2)[0][-1])
+    lost = {"leading": [0], "trailing": list(range(last + 1, len(lens))),
+            "both": [0] + list(range(last + 1, len(lens)))}[where]
+    assert lost
+    deg = _lose_flows(t, lost)
+    comp = deg.compact()[0]
+    assert verify_deadlock_free(got.at, deg)
+    assert verify_deadlock_free(got.at, comp)
+    assert ref_verify(want.at, RefCSR(*(getattr(comp, f) for f in (
+        "n", "n_ch", "n_vc") + CSR_FIELDS)))
+    # an illegal turn on the last pair of the table is still caught
+    deg = _lose_flows(t, sorted(set(lost) | set(range(last + 1, len(lens)))))
+    sg = got.at.state_graph()
+    prev = np.int64(deg.chan[-2]) * deg.n_vc + deg.vc[-2]
+    cand = np.arange(deg.n_ch * deg.n_vc, dtype=np.int64)
+    bad = int(cand[~sg.has_edges(np.full_like(cand, prev), cand)][0])
+    deg.chan[-1], deg.vc[-1] = bad // deg.n_vc, bad % deg.n_vc
+    assert not verify_deadlock_free(got.at, deg)
