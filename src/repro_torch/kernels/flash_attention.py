@@ -6,14 +6,17 @@ ctypes. :func:`flash_attention` launches on PyTorch's current stream and
 counts its launches in ``launches``. Its tensors keep the reference's
 (B, H, S, hd) shape but may have any strides with ``hd`` contiguous, so
 the model passes transposed views of its (B, S, H, hd) activations and
-nothing is copied; the output takes the strides of ``q``.
+nothing is copied; the output takes the strides of ``q``. bf16 inputs
+run the tensor-core kernel, fed by TMA, which also needs 16-byte
+aligned bases and strides (:func:`check_inputs`); float32 inputs run the
+CUDA-core kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,23 +64,47 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"{DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs head_dim contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma_layout(name, t)
     return Geometry(B, Hq, Hkv, Sq, Skv, hd)
 
 
-def library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    so, build_seconds = nvcc.build(SOURCE, "flash_attention")
+def _check_tma_layout(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel reads q, k and v by TMA, which needs a base on 16
+    bytes and byte strides that are positive multiples of 16 (8
+    elements). A dim of extent 1 is never stepped, so its stride is free."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention bf16 kernel needs {name} on a "
+                         "16-byte boundary")
+    for dim, what in enumerate(("batch", "head", "position")):
+        st = t.stride(dim)
+        if t.shape[dim] > 1 and (st <= 0 or st % 8):
+            raise ValueError(
+                f"flash_attention bf16 kernel needs {name}'s {what} stride "
+                f"in bytes to be a positive multiple of 16, got {2 * st}")
+
+
+def load(source: Path, name: str) -> Tuple[ctypes.CDLL, Optional[float]]:
+    """Build ``source`` as library ``name`` (once per source version) and
+    load it: the bound library and nvcc's seconds (``None`` when built
+    before)."""
+    so, seconds = nvcc.build(source, name)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    return lib, seconds
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source version) and load this kernel's library."""
+    global _lib, build_seconds
+    if _lib is None:
+        _lib, build_seconds = load(SOURCE, "flash_attention")
+    return _lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,6 +114,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd), causal mask ``qpos >= kpos`` counted from 0 for both (top-left).
     Float32 or bfloat16 on one CUDA device; the output has q's dtype."""
     global launches
+    out = run(q, k, v, causal)
+    launches += 1
+    return out
+
+
+def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Launch the kernel of ``lib`` (from :func:`load`; this checkout's
+    by default) on the current stream, uncounted: :func:`flash_attention`
+    is the counted entry point."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or \
             not (q.device == k.device == v.device):
         raise ValueError("flash_attention kernel needs q, k, v on one CUDA "
@@ -95,14 +132,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)          # dense q keeps its strides
     strides = (ctypes.c_longlong * 12)(*[
         s for t in (q, k, v, out) for s in t.stride()[:3]])
-    lib = library()
+    if lib is None:
+        lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), g.hd, g.B, g.Hq, g.Hkv, g.Sq, g.Skv,
         strides, 1.0 / math.sqrt(g.hd), int(causal), q.device.index, stream)
+    if rc < 0:
+        raise RuntimeError(f"flash_attention tensor-map encode failed: "
+                           f"CUresult {-rc}")
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
     return out

@@ -8,8 +8,12 @@ agrees with the Pallas kernel (interpret mode) over the sweep of
 case, and with the JAX ``ref.flash_attention_ref`` where the two causal
 alignments agree (Sq == Skv), ragged S = 100 included. Tolerances are
 ``test_kernels.py``'s: 2e-5 for float32, 2e-2 for bfloat16 (one bf16
-rounding of an output of magnitude ~1 is up to 4e-3).
+rounding of an output of magnitude ~1 is up to 4e-3). The bf16 kernel's
+own rounding points, rebuilt here in plain torch, are held to the
+Pallas kernel at the same 2e-2.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +21,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
-from repro_torch.kernels import flash_attention as kfa, ops, ref
+from repro_torch.kernels import bench_flash, flash_attention as kfa, ops, ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -140,3 +144,92 @@ def test_kernel_input_checks_accept_the_serving_layout():
     strided = torch.zeros((1, 16, 100, 256), dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         kfa.check_inputs(strided, kv.transpose(1, 2), kv.transpose(1, 2))
+
+
+def _tensor_core_rounding(q, k, v, causal, bk=128):
+    """The bf16 tensor-core kernel's arithmetic in plain torch, tile by
+    tile: bf16 products accumulated in f32, masked scores -1e30, the scale
+    times log2(e) (f32) applied after the product inside exp2, an online
+    softmax from m = -1e30 and l = 0, l summed from the f32 P, P rounded
+    to bf16 for P.V with f32 accumulation, and acc / max(l, 1e-30) in
+    q's dtype."""
+    B, Hq, Sq, hd = q.shape
+    Skv = k.shape[2]
+    rep = Hq // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    sl2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+           * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    m = torch.full((B, Hq, Sq, 1), ref.NEG_INF)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, hd))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, bk):
+        s = q.float() @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        if causal:
+            kpos = torch.arange(k0, min(k0 + bk, Skv))[None, :]
+            s = s.masked_fill(kpos > qpos, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * sl2)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * sl2 - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+_TC_SHAPES = ([(1, Hq, Hkv, S, S, hd, True) for S in (128, 256)
+               for hd in (64, 128) for Hq, Hkv in ((4, 4), (4, 2), (8, 1))]
+              + [(2, 4, 2, 128, 256, 64, False),
+                 (1, 4, 2, 128, 256, 64, True)])
+
+
+@pytest.mark.parametrize("B, Hq, Hkv, Sq, Skv, hd, causal", _TC_SHAPES)
+def test_tensor_core_rounding_matches_pallas_kernel(B, Hq, Hkv, Sq, Skv, hd,
+                                                    causal):
+    """The bf16 kernel's rounding points fit the Pallas kernel's bf16
+    tolerance over the sweep, the non-causal and the Sq < Skv shapes."""
+    (jq, q), (jk, k), (jv, v) = _qkv(B, Hq, Hkv, Sq, Skv, hd, "bfloat16",
+                                     seed=7)
+    got = _tensor_core_rounding(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, pallas_flash(jq, jk, jv, causal=causal, interpret=True),
+           "bfloat16")
+
+
+def test_kernel_input_checks_bf16_needs_16_byte_strides():
+    """TMA reads bf16 tensors: a position stride of 264 bytes, or a base
+    off a 16-byte boundary, raises; float32 keeps the CUDA-core rules."""
+    kv = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16)
+    padded = torch.zeros((1, 4, 64, 132), dtype=torch.bfloat16)[..., :128]
+    assert padded.stride(2) * 2 == 264
+    with pytest.raises(ValueError, match="position stride"):
+        kfa.check_inputs(padded, kv, kv)
+    shifted = torch.zeros(4 * 64 * 128 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        kfa.check_inputs(shifted.view(1, 4, 64, 128), kv, kv)
+    f32 = torch.zeros((1, 4, 64, 130))[..., :128]
+    assert f32.stride(2) * 4 == 520
+    shifted32 = torch.zeros(4 * 64 * 128 + 1)[1:].view(1, 4, 64, 128)
+    for q in (f32, shifted32):
+        assert kfa.check_inputs(q, kv.float(), kv.float()) == kfa.Geometry(
+            B=1, Hq=4, Hkv=2, Sq=64, Skv=64, hd=128)
+
+
+def test_kernel_input_checks_accept_the_serving_strides():
+    """The model's (B, S, H, hd) views: 4096-byte position stride for q
+    (16 heads of 128), 512 bytes for k and v (2 heads)."""
+    x = torch.zeros((1, 891, 16, 128), dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros((1, 891, 2, 128), dtype=torch.bfloat16).transpose(1, 2)
+    assert x.stride(2) * 2 == 4096 and kv.stride(2) * 2 == 512
+    assert kfa.check_inputs(x, kv, kv) == kfa.Geometry(
+        B=1, Hq=16, Hkv=2, Sq=891, Skv=891, hd=128)
+
+
+def test_bench_flash_needs_a_card(capsys):
+    """The timing script exits 2 without a CUDA device and prints no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the script would time it")
+    assert bench_flash.main([str(kfa.SOURCE)]) == 2
+    assert capsys.readouterr().out == ""

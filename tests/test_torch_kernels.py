@@ -15,7 +15,7 @@ from repro.core import topology as T
 from repro.kernels import ops as jops, ref as jref
 from repro.kernels.minplus import minplus as pallas_minplus
 from repro_torch.core import topology as PT
-from repro_torch.kernels import minplus as kmp, ops, ref
+from repro_torch.kernels import minplus as kmp, nvcc, ops, ref
 
 
 def _inputs(M, K, N, seed=0):
@@ -135,3 +135,25 @@ def test_ops_minplus_raises_on_other_devices():
     a = torch.empty((4, 4), device="meta")
     with pytest.raises(ValueError, match="no path"):
         ops.minplus(a, a)
+
+
+def test_nvcc_build_keeps_its_report_beside_the_library(tmp_path,
+                                                        monkeypatch):
+    """A build writes nvcc's output (ptxas's report) beside the library;
+    a later build of the same source finds the library and reads the
+    report back, so it is not lost when nothing is compiled."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info    : Used 8 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(nvcc, "LOGS", {})
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    so, seconds = nvcc.build(src, "k")
+    assert so.exists() and seconds is not None
+    assert "Used 8 registers" in nvcc.LOGS["k"]
+    nvcc.LOGS.clear()
+    assert nvcc.build(src, "k") == (so, None)
+    assert "Used 8 registers" in nvcc.LOGS["k"]
