@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels from the sources in this checkout (both at once), holds each
-against its plain torch version on the card, drives the two main paths
-at full size -- route-and-simulate (PT 8x8x8 and the synthesized
-TONS_SYM 256 fabric) and serving (qwen2.5-3b at its published widths,
-8 ragged requests through the port's ``Server``, then one 32768-token
+kernels from the sources in this checkout (both at once), measures the
+issue rates of the instructions the (min,+) kernel is built from, holds
+each kernel and each of its paths against its plain torch version on
+the card, drives the two main paths at full size -- route-and-simulate
+(PT 8x8x8 and the synthesized TONS_SYM 256 fabric, and the APSP of the
+full PT 16^3 pod) and serving (qwen2.5-3b at its published widths, 8
+ragged requests through the port's ``Server``, then one 32768-token
 prefill) -- checks that the simulator's and the model's CUDA and CPU
 runs agree, and prints one JSON line per result.
 
@@ -20,6 +22,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -31,6 +34,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels.timing import cuda_ms, device_ms  # noqa: E402
 
 # Published H100 SXM memory rate (HBM3).
 PEAK_BYTES = 3.35e12
@@ -67,34 +71,28 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(so: str) -> dict:
-    """Instructions of a built library by opcode (``cuobjdump -sass``):
-    wgmma (HGMMA), TMA loads (UTMALDG), mbarrier ops (SYNCS), register
-    hand-over (USETMAXREG) and local-memory spills (STL, LDL)."""
+def sass_counts(so: str, ops=("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG",
+                               "STL", "LDL"), by_function=False) -> dict:
+    """Instructions of a built library by opcode (``cuobjdump -sass``), in
+    all or (``by_function``) per kernel. The default opcodes: wgmma
+    (HGMMA), TMA loads (UTMALDG), mbarrier ops (SYNCS), register hand-over
+    (USETMAXREG) and local-memory spills (STL, LDL); the minplus library
+    adds FADD, FMNMX, DPX add-min (VIADDMNMX) and cp.async (LDGSTS)."""
     from repro_torch.kernels import nvcc
     tool = Path(nvcc.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", so], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    return {op: sass.count(op) for op in
-            ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "STL", "LDL")}
 
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    def count(text):
+        return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+    if not by_function:
+        return count(sass)
+    return {sec.splitlines()[0].strip(): count(sec)
+            for sec in sass.split("Function : ")[1:]}
 
 
 def minplus_bound_ms(M: int, K: int, N: int, ops_per_s: float) -> tuple:
-    """Least time for one (min,+) product: M*N*K adds and M*N*K mins,
+    """Least time for one f32 (min,+) product: M*N*K adds and M*N*K mins,
     which do not fuse, at one FP32 instruction per lane per clock
     (``ops_per_s``), or each operand read once and the result written
     once at the memory rate; the larger, and which one it is."""
@@ -103,8 +101,106 @@ def minplus_bound_ms(M: int, K: int, N: int, ops_per_s: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
-    """Every kernel shape against the plain version, on the card."""
+def hops_bound_ms(M: int, K: int, N: int, dpx_per_s: float) -> tuple:
+    """Least time for one hop-path product: M*N*K / 2 VIADDMNMX.s16x2
+    instructions (two triples each) at the rate the probe measured on
+    this card (``dpx_per_s``), or int16 operands read once and the
+    result written once at the memory rate; the larger, and which."""
+    t_ops = 0.5 * M * N * K / dpx_per_s * 1e3
+    t_bytes = 2.0 * (M * K + K * N + M * N) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class SmiSampler:
+    """``nvidia-smi`` sampling the SM clock and power draw every 20 ms
+    while the ``with`` block runs; ``summary()`` gives the least, median
+    and largest of each."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.out = self.proc.communicate(timeout=30)[0]
+
+    def summary(self) -> dict:
+        rows = []
+        for line in self.out.splitlines():
+            try:
+                clock, power = (float(x) for x in line.split(","))
+            except ValueError:          # "[N/A]", or a line cut short
+                continue
+            rows.append((clock, power))
+        if not rows:
+            return dict(samples=0)
+        clock, power = (sorted(c) for c in zip(*rows))
+        return dict(samples=len(rows), sm_clock_mhz=[clock[0],
+                    clock[len(clock) // 2], clock[-1]],
+                    power_w=[power[0], power[len(power) // 2], power[-1]])
+
+
+def phase_minplus_build(mp, nvcc):
+    """The minplus library's ptxas report (no spills) and its SASS by
+    kernel: FADD + FMNMX in the f32 path, VIADDMNMX in the hop path."""
+    log = nvcc.LOGS.get("minplus", "")
+    ptxas = [line.strip() for line in log.splitlines()
+             if "Used" in line or "spill" in line]
+    spills = [int(x) for line in ptxas for x in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", line)]
+    counts = sass_counts(mp.library()._name,
+                         ("FADD", "FMNMX", "VIADDMNMX", "LDGSTS", "STL",
+                          "LDL"), by_function=True)
+    kernels = {k: v for k, v in counts.items() if "minplus_kernel" in k}
+    # minplus_probe_kernel<op>: what each probed instruction compiles to
+    probes = {op: next(v for k, v in counts.items()
+                       if f"minplus_probe_kernelILi{i}E" in k)
+              for i, op in enumerate(mp.PROBE_OPS)}
+    emit(phase="minplus_build", ptxas=ptxas, sass_by_kernel=kernels,
+         sass_by_probe=probes)
+    check(probes["fadd"]["FADD"] and probes["fmin"]["FMNMX"]
+          and probes["viaddmin_s32"]["VIADDMNMX"]
+          and probes["viaddmin_s16x2"]["VIADDMNMX"],
+          f"probed instructions compile to other opcodes: {probes}")
+    check(ptxas and spills and not any(spills),
+          f"minplus kernels spill or report nothing: {ptxas}")
+    hop = [v for k, v in kernels.items() if "HopPath" in k]
+    f32 = [v for k, v in kernels.items() if "F32Path" in k]
+    check(len(hop) == 2 and all(v["VIADDMNMX"] > 0 and v["FMNMX"] == 0
+                                and v["LDGSTS"] > 0 for v in hop),
+          f"hop kernels are not VIADDMNMX fed by cp.async: {hop}")
+    check(len(f32) == 2 and all(v["FADD"] > 0 and v["FMNMX"] > 0
+                                for v in f32), f"f32 kernels: {f32}")
+    check(not any(v["STL"] or v["LDL"] for v in kernels.values()),
+          "minplus kernels use local memory")
+
+
+def phase_minplus_probe(mp, sm_clock_hz, sms):
+    """Issue rates of the instructions the two paths are built from, per
+    SM per clock (``minplus.probe``), and what each path's inner step
+    does per clock: the f32 pair one triple per FADD + FMNMX, s32 one per
+    instruction, s16x2 two. Returns the s16x2 instruction rate of the
+    card, in instructions per second."""
+    rates = {op: mp.probe(op) for op in mp.PROBE_OPS}
+    triples = {"f32_pair": rates["f32_add_min_pair"]["median"],
+               "s32": rates["viaddmin_s32"]["median"],
+               "s16x2": 2 * rates["viaddmin_s16x2"]["median"]}
+    emit(phase="minplus_probe", per_sm_per_clock=rates,
+         triples_per_sm_per_clock=triples, hop_path="s16x2")
+    check(all(r["sms"] == sms for r in rates.values()),
+          "the probe did not reach every SM")
+    check(triples["s16x2"] > max(triples["s32"], triples["f32_pair"]),
+          f"s16x2 is not the fastest form: {triples}")
+    return rates["viaddmin_s16x2"]["median"] * sms * sm_clock_hz
+
+
+def phase_kernels(mp, ops, ref, PT, tons, ops_per_s, dpx_per_s):
+    """Both minplus paths against their plain versions on the card, the
+    main path's APSPs against the host BFS, and each path timed at the
+    main path's shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -112,14 +208,18 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
         return (torch.rand(M, K, device=dev, generator=g) * 10,
                 torch.rand(K, N, device=dev, generator=g) * 10)
 
+    def rand_hops(M, K, N, hi):
+        return tuple(torch.randint(0, hi + 1, s, device=dev, generator=g,
+                                   dtype=torch.int16) for s in ((M, K), (K, N)))
+
     # the main path's inputs: the hop matrices of PT 8^3 (512^3 products)
     # and TONS_SYM 256 (256^3), and their partial closures; PT 8x8x16's
     # closure for ragged blocks; random f32 at every shape, and a shape
     # with ragged edges on every side
-    pt8 = ops.hop_matrix(PT.pt((8, 8, 8)).edges(), 512, dev)
-    t256 = ops.hop_matrix(tons.edges(), tons.n, dev)
-    closure = ref.apsp_ref(ops.hop_matrix(PT.pt((8, 8, 16)).edges(), 1024,
-                                          dev))
+    pt8_h, t256_h, pt8x16_h = (ops.hop_matrix(t.edges(), t.n, dev) for t in
+                               (PT.pt((8, 8, 8)), tons, PT.pt((8, 8, 16))))
+    pt8, t256 = ops.decode_hops(pt8_h), ops.decode_hops(t256_h)
+    closure = ref.apsp_ref(ops.decode_hops(pt8x16_h))
 
     def partial(d, squarings):
         for _ in range(squarings):
@@ -138,6 +238,9 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
         ((1024, 256, 512), "hops", closure[:, :256].contiguous(),
          closure[:256, :512].contiguous()),
         ((100, 70, 130), "random", *rand(100, 70, 130)),
+        # the 128 x 128-word tile, whole and with ragged edges
+        ((2048, 64, 2048), "random", *rand(2048, 64, 2048)),
+        ((2050, 100, 2046), "random", *rand(2050, 100, 2046)),
     ]
     max_err = 0.0
     for (M, K, N), kind, x, y in cases:
@@ -148,8 +251,44 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
         max_err = max(max_err, err)
         check(torch.equal(got, want),
               f"minplus {kind} {(M, K, N)} differs, max err {err}")
-        emit(phase="minplus_parity", shape=[M, K, N], input=kind,
-             exact=True, max_abs_err=err)
+        emit(phase="minplus_parity", path="f32", shape=[M, K, N],
+             input=kind, exact=True, max_abs_err=err,
+             plan=mp.plan("f32", M, N, K))
+
+    # the hop path: the same hop matrices and closures encoded, held to
+    # the plain int16 version and, mapped back, to the f32 kernel
+    enc = ops.encode_hops
+    hop_cases = [
+        ((512, 512, 512), "hops", pt8_h, pt8_h),
+        ((512, 512, 512), "hops", pt8_h, enc(partial(pt8, 3))),
+        ((256, 256, 256), "hops", t256_h, t256_h),
+        ((256, 256, 256), "hops", t256_h, enc(partial(t256, 3))),
+        ((1024, 256, 512), "hops", enc(closure)[:, :256].contiguous(),
+         enc(closure)[:256, :512].contiguous()),
+        ((100, 70, 130), "random", *rand_hops(100, 70, 130, ops.HOP_INF)),
+        ((511, 513, 257), "random", *rand_hops(511, 513, 257, 100)),
+        ((512, 512, 512), "random", *rand_hops(512, 512, 512, ops.HOP_INF)),
+        ((256, 256, 256), "random", *rand_hops(256, 256, 256, 40)),
+        ((4096, 128, 4096), "random", *rand_hops(4096, 128, 4096, 200)),
+    ]
+    hop_err = 0
+    for (M, K, N), kind, x, y in hop_cases:
+        got = mp.minplus_hops(x, y)
+        torch.cuda.synchronize()
+        want = ref.minplus_hops_ref(x, y)
+        err = int((got.int() - want.int()).abs().max())
+        hop_err = max(hop_err, err)
+        check(torch.equal(got, want),
+              f"minplus_hops {kind} {(M, K, N)} differs, max err {err}")
+        line = dict(phase="minplus_parity", path="hops", shape=[M, K, N],
+                    input=kind, exact=True, max_abs_err=err,
+                    plan=mp.plan("hops", M, N, K))
+        if kind == "hops":
+            f32 = mp.minplus(ops.decode_hops(x), ops.decode_hops(y))
+            check(torch.equal(ops.decode_hops(got), f32),
+                  f"hop and f32 kernels differ at {(M, K, N)}")
+            line["equals_f32_kernel"] = True
+        emit(**line)
 
     # the main path's APSP of each fabric equals the host BFS
     for name, topo in (("PT 8x8x8", PT.pt((8, 8, 8))), ("TONS_SYM 256", tons)):
@@ -157,26 +296,61 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
                              PT.bfs_all_pairs(topo,
                                               sources=np.arange(topo.n))),
               f"{name} APSP differs from host BFS")
+        stats: dict = {}
+        ops.apsp(ops.hop_matrix(topo.edges(), topo.n, dev), stats)
         emit(phase="apsp_parity", fabric=name, n=topo.n,
-             equal_to_host_bfs=True)
+             equal_to_host_bfs=True, squarings_run=stats["squarings"],
+             squarings_reference=int(math.ceil(math.log2(topo.n - 1))),
+             path=stats["path"])
 
-    # main-path shapes, timed on the main path's own hop matrices
-    rows = {}
-    for n, d in ((512, pt8), (256, t256)):
-        ms = cuda_ms(lambda: mp.minplus(d, d), 50)
-        plain_ms = cuda_ms(lambda: ref.minplus_ref(d, d), 5)
-        bound, by = minplus_bound_ms(n, n, n, ops_per_s)
-        rows[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=by)
-        emit(phase="minplus_time", shape=[n, n, n], ms=ms,
-             plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    # each path timed at the main path's shapes, on the main path's own
+    # hop matrices: CUDA events over back-to-back calls of the counted
+    # wrapper the main path calls (host dispatch and, on the hop path,
+    # the range check's reduction and host read included), the same of
+    # the bare launch, and the kernel's device time from a profiler
+    # trace; the SM clock sampled where a call is long enough to show it
+    rows = {"f32": {}, "hops": {}}
 
-    # the full TPU v4 pod: PT 16^3, n = 4096, 12 squarings
+    def time_row(path, n, h, reps, plain_reps):
+        f = ops.decode_hops(h)
+        if path == "f32":
+            call = lambda: mp.minplus(f, f)                    # noqa: E731
+            launch = lambda: mp.run(f, f)                      # noqa: E731
+            plain = lambda: ref.minplus_ref(f, f)              # noqa: E731
+            bound, by = minplus_bound_ms(n, n, n, ops_per_s)
+        else:
+            call = lambda: mp.minplus_hops(h, h)               # noqa: E731
+            launch = lambda: mp.run(h, h, entry="minplus_hops")  # noqa: E731
+            plain = lambda: ref.minplus_hops_ref(h, h)         # noqa: E731
+            bound, by = hops_bound_ms(n, n, n, dpx_per_s)
+        row = dict(ms=cuda_ms(call, reps),
+                   unchecked_ms=cuda_ms(launch, reps))
+        card = None
+        if n >= 4096:
+            with SmiSampler() as smi_log:
+                row["device_ms"] = device_ms(launch, reps, "minplus_kernel")
+            card = smi_log.summary()
+        else:
+            row["device_ms"] = device_ms(launch, reps, "minplus_kernel")
+        row.update(plain_ms=cuda_ms(plain, plain_reps), bound_ms=bound,
+                   bound_by=by)
+        rows[path][n] = row
+        emit(phase="minplus_time", path=path, shape=[n, n, n],
+             bound_share=bound / row["device_ms"],
+             plan=mp.plan(path, n, n, n), card=card, **row)
+
+    for n, h in ((512, pt8_h), (256, t256_h)):
+        for path in ("f32", "hops"):
+            time_row(path, n, h, 50, 5)
+
+    # the full TPU v4 pod: PT 16^3, n = 4096, on the hop path
     topo = PT.pt((16, 16, 16))
+    mp.hop_launches = 0
     t0 = time.perf_counter()
     d_dev = PT.bfs_all_pairs(topo, device=dev)
     torch.cuda.synchronize()
     t_apsp = time.perf_counter() - t0
+    apsp_launches = mp.hop_launches
     t0 = time.perf_counter()
     d_host = PT.bfs_all_pairs(topo, sources=np.arange(topo.n))
     t_bfs = time.perf_counter() - t0
@@ -184,18 +358,41 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s):
     diam, avg = ops.topology_metrics(topo.edges(), topo.n, device=dev)
     fin = d_host[np.isfinite(d_host)]
     check(diam == int(fin.max()), "16^3 diameter differs from host BFS")
+    # bfs_all_pairs's steps, each timed to a synchronise
+    split, stats = {}, {}
+    t0 = time.perf_counter()
     d0 = ops.hop_matrix(topo.edges(), topo.n, dev)
-    ms = cuda_ms(lambda: mp.minplus(d0, d0), 5)
-    plain_ms = cuda_ms(lambda: ref.minplus_ref(d0, d0), 1)
-    bound, by = minplus_bound_ms(4096, 4096, 4096, ops_per_s)
+    torch.cuda.synchronize()
+    split["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = ops.apsp(d0, stats)
+    torch.cuda.synchronize()
+    split["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = d.cpu()
+    split["to_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = d.numpy().astype(np.float64)
+    d[d >= ops.UNREACHABLE] = np.inf
+    split["host_convert_s"] = time.perf_counter() - t0
+    check(np.array_equal(d, d_host), "16^3 APSP steps differ from host BFS")
+    reference = int(math.ceil(math.log2(topo.n - 1)))
+    check(stats["path"] == "hops" and stats["squarings"] < reference
+          and apsp_launches == stats["squarings"],
+          f"16^3 APSP ran {stats} in {apsp_launches} hop launches against "
+          f"the reference's {reference} squarings")
+    for path in ("f32", "hops"):
+        time_row(path, 4096, d0, 20, 1)
     emit(phase="apsp_16x16x16", n=topo.n, equal_to_host_bfs=True,
-         diameter=diam, avg_hops=avg, squarings=int(math.ceil(
-             math.log2(topo.n - 1))), apsp_s=t_apsp, host_bfs_s=t_bfs,
-         ms_per_squaring=ms, plain_ms_per_squaring=plain_ms,
-         bound_ms=bound, bound_by=by)
-    rows[4096] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                      bound_by=by)
-    return rows, max_err
+         diameter=diam, avg_hops=avg, squarings_run=stats["squarings"],
+         hop_launches=apsp_launches,
+         squarings_reference=reference, apsp_s=t_apsp, apsp_split=split,
+         host_bfs_s=t_bfs,
+         ms_per_squaring={p: rows[p][4096]["device_ms"] for p in rows},
+         bound_ms_per_squaring={p: rows[p][4096]["bound_ms"] for p in rows},
+         bound_by={"f32": "operations at the FP32 rate",
+                   "hops": "operations at the probe's VIADDMNMX rate"})
+    return rows, max_err, hop_err
 
 
 def serve_prompts(vocab: int):
@@ -603,21 +800,24 @@ def main() -> int:
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"flash library has no wgmma or TMA loads: {sass}")
 
+    phase_minplus_build(mp, nvcc)
+    dpx_per_s = phase_minplus_probe(mp, sm_clock_hz, sms)
     tons = convert.load_fabric(
         ROOT / "benchmarks" / "results" / "tons_256.pkl", (4, 8, 8),
         name="TONS_SYM 256")
-    rows, max_err = phase_kernels(mp, ops, ref, PT, tons, ops_per_s)
+    rows, max_err, hop_err = phase_kernels(mp, ops, ref, PT, tons, ops_per_s,
+                                           dpx_per_s)
 
     # ---- the main path, counts from zero -----------------------------------
-    mp.launches = 0
+    mp.launches = mp.hop_launches = 0
     rp8 = drive("PT 8x8x8", PT.pt((8, 8, 8)), PNS, route_pod)
-    launches_8 = mp.launches
+    hops_8 = mp.hop_launches
     drive("TONS_SYM 256", tons, PNS, route_pod)
-    launches = mp.launches
-    emit(phase="launches", minplus_after_pt8=launches_8,
-         minplus_main_path=launches)
-    check(launches_8 > 0, "route_pod(PT 8^3) never launched minplus")
-    check(launches > launches_8, "TONS_SYM 256 never launched minplus")
+    launches, hop_launches = mp.launches, mp.hop_launches
+    emit(phase="launches", minplus_hops_after_pt8=hops_8,
+         minplus_hops_main_path=hop_launches, minplus_f32_main_path=launches)
+    check(hops_8 > 0, "route_pod(PT 8^3) never launched the hop path")
+    check(hop_launches > hops_8, "TONS_SYM 256 never launched the hop path")
 
     # ---- where a sweep's time goes: device busy share under the profiler ----
     rates = [0.03 * (i + 1) for i in range(10)]
@@ -649,15 +849,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_cpu_vs_gpu(PM, cfg)
 
-    k, f = rows[512], flash_rows[2048]
-    print(json.dumps({"kernels": [{
-        "name": "minplus", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/minplus.cu",
-        "replaces": "src/repro/kernels/minplus.py:24",
-        "launches": launches, "parity": "exact", "max_abs_err": max_err,
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None}, {
+    def minplus_entry(path, name, launches, err):
+        k = rows[path][512]
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/minplus.cu",
+            "replaces": "src/repro/kernels/minplus.py:24", "path": path,
+            "launches": launches, "parity": "exact", "max_abs_err": err,
+            "shape": [512, 512, 512], "ms": k["ms"],
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None,
+            "device_ms_by_n": {n: r["device_ms"]
+                               for n, r in rows[path].items()}}
+
+    f = flash_rows[2048]
+    print(json.dumps({"kernels": [
+        minplus_entry("f32", "minplus", launches, max_err),
+        minplus_entry("hops", "minplus_hops", hop_launches, hop_err), {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:24",

@@ -23,22 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.timing import cuda_ms
 
 SIZES = (2048, 4096, 8192, 32768)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def time_library(lib, source: Path, label: str) -> None:

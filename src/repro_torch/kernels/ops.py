@@ -7,6 +7,7 @@ other device raises. There is no capability gate and no fallback.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -14,8 +15,12 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as _fa, minplus as _mp, ref
 
-BIG = 1e9             # "no path yet" in the hop matrix
+BIG = 1e9             # "no path yet" in the f32 hop matrix
 UNREACHABLE = 1e8     # distances at or above this are unreachable
+HOP_INF = ref.HOP_INF  # "no path" in the int16 hop matrix
+# the int16 hop path holds n <= HOP_N_MAX nodes: every sum of two hop
+# counts, at most 2 * (n - 1), stays below HOP_INF
+HOP_N_MAX = HOP_INF // 2
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,23 +43,83 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"minplus has no path for device {a.device}")
 
 
-def apsp(d: torch.Tensor) -> torch.Tensor:
-    """All-pairs hop distances by ``ceil(log2(n - 1))`` (min,+) squarings
-    of the hop matrix ``d``."""
+def minplus_hops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """out[i, j] = min(HOP_INF, min_k a[i, k] + b[k, j]) on int16 hop
+    counts in [0, HOP_INF]."""
+    if a.device.type == "cuda":
+        return _mp.minplus_hops(a, b)
+    if a.device.type == "cpu":
+        return ref.minplus_hops_ref(a, b)
+    raise ValueError(f"minplus_hops has no path for device {a.device}")
+
+
+def encode_hops(d: torch.Tensor) -> torch.Tensor:
+    """An f32 matrix of hop counts (BIG for no path) as the int16 hop path
+    holds it: the inverse of :func:`decode_hops`. It does not check that
+    every value is a hop count; :func:`minplus_hops` refuses one out of
+    range."""
+    return torch.where(d == BIG, HOP_INF, d).to(torch.int16)
+
+
+def decode_hops(h: torch.Tensor) -> torch.Tensor:
+    """The int16 hop matrix back as callers see it: f32 hop counts, BIG
+    for no path."""
+    return torch.where(h == HOP_INF, BIG, h.float())
+
+
+def _square_to_fixpoint(d: torch.Tensor, square, n: int):
+    """Square ``d`` until a squaring changes nothing (one host sync
+    each), at most the reference's ceil(log2(n - 1)) times; returns the
+    matrix and the squarings run. Once d (x) d == d every later squaring
+    returns d, so the result is the reference's bit for bit."""
+    cap = int(math.ceil(math.log2(max(n - 1, 1))))
+    runs = 0
+    while runs < cap:
+        nxt = square(d, d)
+        runs += 1
+        if torch.equal(nxt, d):
+            break
+        d = nxt
+    return d, runs
+
+
+def apsp(d: torch.Tensor, stats: Optional[dict] = None) -> torch.Tensor:
+    """All-pairs hop distances of the hop matrix ``d`` as an f32 matrix
+    with BIG where there is no path: the reference's ``ceil(log2(n - 1))``
+    (min,+) squarings, stopped at the first that changes nothing. An
+    int16 matrix (:func:`hop_matrix`, HOP_INF for no path) is squared on
+    the hop path, an f32 one (BIG for no path) on the f32 path. ``stats``
+    gets ``squarings`` (run) and ``path`` ("hops" or "f32")."""
     n = d.shape[0]
-    for _ in range(int(math.ceil(math.log2(max(n - 1, 1))))):
-        d = minplus(d, d)
-    return d
+    if d.dtype != torch.int16:
+        out, runs = _square_to_fixpoint(d, minplus, n)
+        path = "f32"
+    elif n > HOP_N_MAX:
+        raise ValueError(f"the int16 hop path holds at most {HOP_N_MAX} "
+                         f"nodes, got {n}")
+    else:
+        out, runs = _square_to_fixpoint(d, minplus_hops, n)
+        out, path = decode_hops(out), "hops"
+    if stats is not None:
+        stats.update(squarings=runs, path=path)
+    return out
 
 
 def hop_matrix(edges: np.ndarray, n: int, device=None) -> torch.Tensor:
-    """Adjacency -> initial (min,+) distance matrix (0 on the diagonal, 1
-    on an edge, BIG elsewhere), float32 on ``device``."""
-    d = np.full((n, n), BIG, np.float32)
-    np.fill_diagonal(d, 0.0)
-    d[edges[:, 0], edges[:, 1]] = 1.0
-    d[edges[:, 1], edges[:, 0]] = 1.0
-    return torch.from_numpy(d).to(resolve_device(device))
+    """Adjacency -> initial (min,+) distance matrix on ``device``, built
+    there: 0 on the diagonal, 1 on an edge, "no path" elsewhere. int16
+    with HOP_INF for no path up to HOP_N_MAX nodes (the hop path); f32
+    with BIG beyond."""
+    dev = resolve_device(device)
+    dtype, none = ((torch.int16, HOP_INF) if n <= HOP_N_MAX
+                   else (torch.float32, BIG))
+    d = torch.full((n, n), none, dtype=dtype, device=dev)
+    d.fill_diagonal_(0)
+    e = torch.as_tensor(np.asarray(edges, dtype=np.int64).reshape(-1, 2),
+                        device=dev)
+    d[e[:, 0], e[:, 1]] = 1
+    d[e[:, 1], e[:, 0]] = 1
+    return d
 
 
 def hop_distances(edges: np.ndarray, n: int, device=None) -> torch.Tensor:

@@ -9,6 +9,7 @@ import torch
 # elements of the (M, kc, N) broadcast one chunk of minplus_ref may hold
 _CHUNK_ELEMS = 1 << 27
 NEG_INF = -1e30       # the flash kernels' masked score
+HOP_INF = 16383       # the hop path's int16 "no path": INF + INF fits
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,6 +52,24 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k0 in range(0, K, kc):
         s = (a[:, k0:k0 + kc, None] + b[None, k0:k0 + kc, :]).amin(dim=1)
         out = s if out is None else torch.minimum(out, s)
+    return out
+
+
+def minplus_hops_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The hop path's (min, +) product on int16 hop counts in
+    [0, HOP_INF]: out[i, j] = min(HOP_INF, min_k a[i, k] + b[k, j]).
+
+    The same triples as :func:`minplus_ref`, in the integer type (a sum
+    is at most 2 * HOP_INF, which int16 holds), chunked the same way and
+    capped at HOP_INF as the kernel's accumulator is.
+    """
+    M, K = a.shape
+    N = b.shape[1]
+    kc = max(1, min(K, _CHUNK_ELEMS // max(M * N, 1)))
+    out = torch.full((M, N), HOP_INF, dtype=a.dtype, device=a.device)
+    for k0 in range(0, K, kc):
+        s = (a[:, k0:k0 + kc, None] + b[None, k0:k0 + kc, :]).amin(dim=1)
+        out = torch.minimum(out, s)
     return out
 
 
