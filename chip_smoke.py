@@ -2,12 +2,17 @@
 kernels from the sources in this checkout (both at once), measures the
 issue rates of the instructions the (min,+) kernel is built from, holds
 each kernel and each of its paths against its plain torch version on
-the card, drives the two main paths at full size -- route-and-simulate
+the card, drives the three main paths at full size -- route-and-simulate
 (PT 8x8x8 and the synthesized TONS_SYM 256 fabric, and the APSP of the
-full PT 16^3 pod) and serving (qwen2.5-3b at its published widths, 8
-ragged requests through the port's ``Server``, then one 32768-token
-prefill) -- checks that the simulator's and the model's CUDA and CPU
-runs agree, and prints one JSON line per result.
+full PT 16^3 pod), the fault-tolerant path (every simulator mode held
+CUDA against CPU and dense against CSR at 4x4x8; an OCS fault mid-sweep
+under static and adaptive escape-VC routing and the hotspot acceptance
+at PT 8x8x8; a serving build and online repair of PDTT 12^3; the chaos
+acceptance campaign on PDTT 8^3 with its replay) and serving
+(qwen2.5-3b at its published widths, 8 ragged requests through the
+port's ``Server``, then one 32768-token prefill) -- checks that the
+simulator's and the model's CUDA and CPU runs agree, and prints one
+JSON line per result.
 
     python3 chip_smoke.py
 
@@ -716,6 +721,247 @@ def drive(name, topo, PNS, route_pod):
     return rp
 
 
+def _conserving(trace) -> bool:
+    return all(r["injected_total"] == r["consumed_total"] + r["in_flight"]
+               and all(t["injected"] == t["consumed"] + t["in_flight"]
+                       for t in r.get("tenants", {}).values())
+               for r in trace)
+
+
+def _escape_config(PipelineConfig, **kw):
+    """The adaptive suite's routing: robust allowed turns at 4 VCs, VC 0
+    kept free for the escape lane."""
+    return PipelineConfig(n_vc=4, priority="robust", reserve_escape=True,
+                          **kw)
+
+
+def phase_sim_modes(PNS, PT, PF, TR, route_pod, PipelineConfig,
+                    dims=(4, 4, 8), cycles=1200, dev="cuda"):
+    """Every simulator mode beyond the static path on the card, held to
+    the same sweep on the CPU (``==``), and the dense oracle kernel to
+    the CSR kernel on the card: adaptive, static and adaptive with an
+    OCS fault a third of the way in, bursty, phased and two-tenant
+    traffic, at 4 rates."""
+    topo = PT.pt(dims)
+    rp = route_pod(topo, _escape_config(PipelineConfig, K=4,
+                                        local_search_rounds=1), device=dev)
+    ev = PF.fault_event(rp.at, PF.colors_in_use(topo)[0], cycles // 3)
+    spec = PNS.adaptive_spec(topo, dead_channels=ev[1])
+    n = topo.n
+    rng = np.random.default_rng(0)
+    jobs = (np.arange(n // 2), np.arange(n // 2 - 8, n - 8))
+    modes = {
+        "adaptive": dict(adaptive=spec),
+        "static_fault": dict(fault=ev),
+        "adaptive_fault": dict(adaptive=spec, fault=ev),
+        "bursty": dict(traffic=TR.TrafficPattern.uniform(n).with_burst(
+            64, duty=0.25, gain=3.0)),
+        "phased": dict(traffic=TR.PhasedTraffic("trace", (
+            TR.TrafficPattern.uniform(n),
+            TR.TrafficPattern.hotspot(n, frac=0.4)), (300, 200))),
+        "tenants": dict(traffic=TR.compose_tenants(n, [
+            TR.TenantSpec(f"job{k}", v, rng.random((len(v),) * 2), share)
+            for k, (v, share) in enumerate(zip(jobs, (1.0, 0.5)))])),
+    }
+    rates = [0.02, 0.08, 0.2, 0.6]
+    kw = dict(cycles=cycles, warmup=cycles // 3)
+    threads = torch.get_num_threads()
+    for name, mode in modes.items():
+        times = {}
+        runs = {}
+        for key, d, kernel in (("cuda", dev, "csr"), ("cpu", "cpu", "csr"),
+                               ("dense", dev, "dense")):
+            # the CPU run is many small ops: intra-op threads only add
+            # overhead there
+            torch.set_num_threads(1 if key == "cpu" else threads)
+            t0 = time.perf_counter()
+            runs[key] = PNS.sweep(rp.tables, rates, kernel=kernel, device=d,
+                                  **kw, **mode)
+            times[f"{key}_s"] = time.perf_counter() - t0
+        torch.set_num_threads(threads)
+        got = runs["cuda"]
+        emit(phase="sim_modes_determinism", fabric=f"PT {dims}", mode=name,
+             rates=rates, cycles=cycles, equal_to_cpu=got == runs["cpu"],
+             dense_equals_csr=runs["dense"] == got,
+             delivered=[r["delivered"] for r in got],
+             escaped=[r["escaped"] for r in got],
+             in_flight=[r["in_flight"] for r in got],
+             stalled_at=[r["stalled_at"] for r in got],
+             tenants=[r.get("tenants") for r in got], **times)
+        check(got == runs["cpu"], f"{name}: CUDA and CPU sweeps differ")
+        check(runs["dense"] == got, f"{name}: dense and CSR kernels differ")
+        check(_conserving(got), f"{name}: conservation fails")
+
+
+def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
+                      dims=(8, 8, 8), cycles=6000, warmup=2000,
+                      t_fault=3000, prof_cycles=512,
+                      sat=dict(step=0.005, max_rate=0.08, cycles=1500,
+                               warmup=500), dev="cuda", profile=None):
+    """The first OCS colour dies at ``t_fault`` under static and adaptive
+    routing (5 rates); packets are conserved in every lane. Then kernels
+    per cycle and busy share of the faulted sweep under the profiler, and
+    the reference's nightly acceptance: saturation under an 8-endpoint
+    hotspot, adaptive not below static."""
+    topo = PT.pt(dims)
+    t0 = time.perf_counter()
+    rp = route_pod(topo, _escape_config(PipelineConfig), device=dev)
+    route_s = time.perf_counter() - t0
+    check(rp.unreachable == 0, "fault_sweep: unreachable pairs")
+    color = PF.colors_in_use(topo)[0]
+    ev = PF.fault_event(rp.at, color, t_fault)
+    t0 = time.perf_counter()
+    spec = PNS.adaptive_spec(topo, dead_channels=ev[1])
+    spec_s = time.perf_counter() - t0
+    rates = [0.05, 0.10, 0.15, 0.20, 0.25]
+    modes = {"static": {}, "adaptive": dict(adaptive=spec)}
+    for name, mode in modes.items():
+        stats: dict = {}
+        t0 = time.perf_counter()
+        tr = PNS.sweep(rp.tables, rates, cycles=cycles, warmup=warmup,
+                       fault=ev, stats=stats, device=dev, **mode)
+        sweep_s = time.perf_counter() - t0
+        emit(phase="fault_sweep", fabric=f"PT {dims}", mode=name,
+             color=color, dead_channels=len(ev[1]), t_fault=t_fault,
+             cycles=cycles, warmup=warmup, route_s=route_s,
+             route_timings=rp.timings, spec_s=spec_s, sweep_s=sweep_s,
+             cycles_run=stats["cycles_run"],
+             cycles_per_s=stats["cycles_run"] / sweep_s,
+             lane_cycles_per_s=stats["lane_cycles"] / sweep_s,
+             per_rate=[{k: r[k] for k in (
+                 "rate", "delivered", "in_flight", "escaped", "stalled_at",
+                 "injected_total", "consumed_total")} for r in tr],
+             conservation=_conserving(tr))
+        check(_conserving(tr), f"fault_sweep {name}: conservation fails")
+    profile = profile or busy_share
+    for name, mode in modes.items():
+        prof = profile(lambda: PNS.sweep(
+            rp.tables, rates, cycles=prof_cycles, warmup=prof_cycles // 2,
+            fault=(prof_cycles // 2, ev[1]), device=dev, **mode))
+        emit(phase="fault_sweep_profile", fabric=f"PT {dims}", mode=name,
+             lanes=len(rates), cycles=prof_cycles,
+             kernels_per_cycle=prof["kernels"] / prof_cycles, **prof)
+    tp = TR.TrafficPattern.hotspot(topo.n, list(range(8)), 0.4)
+    sats, secs = {}, {}
+    for name, mode in modes.items():
+        t0 = time.perf_counter()
+        sats[name], trace = PNS.saturation_point(rp.tables, traffic=tp,
+                                                 device=dev, **sat, **mode)
+        secs[name] = time.perf_counter() - t0
+        check(_conserving(trace), f"hotspot {name}: conservation fails")
+    emit(phase="fault_sweep_hotspot", fabric=f"PT {dims}", hot_nodes=8,
+         frac=0.4, saturation=sats, saturation_s=secs, **sat)
+    check(sats["adaptive"] >= sats["static"] and sats["adaptive"] > 0,
+          f"adaptive saturation below static under hotspot: {sats}")
+
+
+def phase_repair(PR, PF, PT, mp, dims=(12, 12, 12), dev="cuda"):
+    """Time to recover at the reference's size: the cold serving build of
+    PDTT ``dims`` (its APL hop matrix on the minplus hop kernel), then an
+    incremental repair of the first OCS colour, fully verified."""
+    topo = PT.pdtt(dims)
+    launches0 = mp.hop_launches
+    t0 = time.perf_counter()
+    st = PR.ServingState.build(topo, n_vc=2, K=4, seed=0, robust=True,
+                               device=dev)
+    build_s = time.perf_counter() - t0
+    launches = mp.hop_launches - launches0
+    color = PF.colors_in_use(topo)[0]
+    dead = PF.dead_channels_for_color(st.at, color)
+    t0 = time.perf_counter()
+    rr = PR.repair_fault(st, dead, verify="full")
+    repair_s = time.perf_counter() - t0
+    mask = np.zeros(st.at.channels.n, bool)
+    mask[dead] = True
+    on_dead = int(mask[rr.state.table.chan].sum())
+    emit(phase="repair_12", fabric=f"PDTT {dims}", n=topo.n,
+         build_s=build_s, hop_launches=launches, l_max_cold=st.l_max,
+         color=color, dead_links=len(dead), repair_s=repair_s,
+         flows_rerouted=rr.flows_rerouted, l_max=rr.l_max,
+         unreachable=rr.unreachable, deadlock_free=rr.deadlock_free,
+         fallback=rr.fallback, readmitted=rr.readmitted,
+         served_hops_on_dead=on_dead,
+         stage_s={k: v for k, v in rr.stats.items() if k.endswith("_s")})
+    check(rr.unreachable == 0 and rr.deadlock_free and not rr.fallback
+          and on_dead == 0, f"repair at {dims}: unreachable "
+          f"{rr.unreachable}, deadlock_free {rr.deadlock_free}, fallback "
+          f"{rr.fallback}, {on_dead} hops on dead channels")
+    check(launches > 0, "the serving build never launched the hop kernel")
+    return launches
+
+
+def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
+                dev="cuda"):
+    """The reference's acceptance campaign on PDTT ``dims`` with netsim
+    probes on the card: every invariant green, a coalesced storm, a
+    degraded disconnection, a restore and a full heal within 1.10x of the
+    cold build's l_max; then, at ``replay_dims``, two campaigns from one
+    seed with probes on the card give one fingerprint."""
+    topo = PT.pdtt(dims)
+    launches0 = mp.hop_launches
+    t0 = time.perf_counter()
+    st = PR.ServingState.build(topo, n_vc=2, K=4, seed=0, robust=True,
+                               device=dev)
+    build_s = time.perf_counter() - t0
+    launches = mp.hop_launches - launches0
+    sched = PX.generate_schedule(st.at, n_arrivals=20, seed=7)
+    t0 = time.perf_counter()
+    res = PX.run_campaign(st, sched, coalesce=1.0, probe_every=5,
+                          device=dev)
+    campaign_s = time.perf_counter() - t0
+    recs = res.records
+    storms = [r.coalesced for r in recs if r.kind == "storm"]
+    emit(phase="chaos_8", fabric=f"PDTT {dims}", n=topo.n, build_s=build_s,
+         hop_launches=launches, events=sched.n_events, kinds=sched.kinds(),
+         groups=len(recs), largest_storm=max(storms, default=0),
+         min_served_fraction=res.min_served_fraction,
+         post_heal_l_max=res.state.l_max, cold_l_max=res.baseline_l_max,
+         post_heal_vs_cold=res.state.l_max / res.baseline_l_max,
+         campaign_s=campaign_s,
+         mttr_s=[r.mttr_s for r in recs],
+         baseline_probe=res.baseline_probe,
+         probes=[dict(event=i, kind=r.kind, **r.probe)
+                 for i, r in enumerate(recs) if r.probe is not None],
+         all_invariants=res.ok, fingerprint=res.fingerprint())
+    check(res.ok, "chaos: an invariant failed: "
+          f"{[r.invariants for r in recs if not r.ok]}")
+    check(storms and max(storms) > 1, "chaos: no coalesced storm")
+    check(any(r.lost_pairs > 0 and not r.fallback for r in recs),
+          "chaos: no degraded disconnection")
+    check(any(r.kind == "restore" for r in recs), "chaos: no restore")
+    check(not any(r.fallback for r in recs), "chaos: a repair fell back")
+    check(len(res.state.lost) == 0
+          and res.state.table.n_routed() == topo.n * (topo.n - 1)
+          and res.records[-1].served_fraction == 1.0,
+          "chaos: the final heal left pairs unserved")
+    check(res.state.l_max <= 1.10 * res.baseline_l_max,
+          f"chaos: post-heal l_max {res.state.l_max} over 1.10x the cold "
+          f"build's {res.baseline_l_max}")
+    check(all(p["stalled_at"] == -1 and p["delivered"] > 0
+              for p in [res.baseline_probe] + [r.probe for r in recs
+                                               if r.probe is not None]),
+          "chaos: a probe stalled or delivered nothing")
+
+    t0 = time.perf_counter()
+    small = PR.ServingState.build(PT.pdtt(replay_dims), n_vc=2, K=4, seed=0,
+                                  robust=True, device=dev)
+    runs = [PX.run_campaign(small, PX.generate_schedule(
+        small.at, n_arrivals=20, seed=7), coalesce=1.0, probe_every=5,
+        device=dev) for _ in range(2)]
+    same = runs[0].fingerprint() == runs[1].fingerprint() and \
+        [r.probe for r in runs[0].records] == \
+        [r.probe for r in runs[1].records]
+    emit(phase="chaos_replay", fabric=f"PDTT {replay_dims}",
+         events=len(runs[0].records), replay_s=time.perf_counter() - t0,
+         probes=sum(r.probe is not None for r in runs[0].records),
+         same_fingerprint=same,
+         all_invariants=runs[0].ok and runs[1].ok,
+         fingerprint_crc=list(runs[0].fingerprint()[1:]))
+    check(same, "chaos: two campaigns from one seed differ")
+    check(runs[0].ok and runs[1].ok, "chaos replay: an invariant failed")
+    return launches
+
+
 def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
     the union of their CUDA kernels' time intervals in a profiler trace,
@@ -733,16 +979,18 @@ def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
+    # the raw trace, not prof.events(): building the event tree takes
+    # tens of seconds for a sweep's hundreds of thousands of events
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    out = dict(wall_s=wall, device_busy_s=busy / 1e6,
-               busy_share=busy / 1e6 / wall, kernels=len(spans))
+    out = dict(wall_s=wall, device_busy_s=busy / 1e9,
+               busy_share=busy / 1e9 / wall, kernels=len(spans))
     if by_kernel:
         times = {e.key: e.self_device_time_total / 1e3
                  for e in prof.key_averages()
@@ -763,13 +1011,15 @@ def main() -> int:
         return 2
     from repro_torch import convert
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import netsim as PNS, topology as PT
-    from repro_torch.core.pipeline import route_pod
+    from repro_torch.core import chaos as PX, fault as PF, netsim as PNS, \
+        repair as PR, topology as PT, traffic as TR
+    from repro_torch.core.pipeline import PipelineConfig, route_pod
     from repro_torch.kernels import flash_attention as fa, minplus as mp, \
         nvcc, ops, ref
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import model as PM
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
@@ -837,6 +1087,26 @@ def main() -> int:
     emit(phase="device_determinism", fabric="PT 4x4x8", rates=rates,
          cycles=1200, equal=True)
 
+    # ---- the fault-tolerant path, counts from zero --------------------------
+    mp.launches = mp.hop_launches = 0
+    t = [time.perf_counter()]
+    phase_sim_modes(PNS, PT, PF, TR, route_pod, PipelineConfig)
+    t.append(time.perf_counter())
+    phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig)
+    t.append(time.perf_counter())
+    hops_repair = phase_repair(PR, PF, PT, mp)
+    t.append(time.perf_counter())
+    hops_chaos = phase_chaos(PR, PX, PT, mp)
+    t.append(time.perf_counter())
+    fault_launches, fault_f32 = mp.hop_launches, mp.launches
+    emit(phase="fault_path_launches", minplus_hops=fault_launches,
+         minplus_f32=fault_f32, minplus_hops_repair_12=hops_repair,
+         minplus_hops_chaos_8=hops_chaos,
+         phase_s=dict(zip(("sim_modes_determinism", "fault_sweep",
+                           "repair_12", "chaos_8"), np.diff(t).tolist())),
+         seconds=t[-1] - t[0])
+    check(hops_chaos > 0, "the chaos build never launched the hop kernel")
+
     # ---- the serving path: flash kernel first, then the main path ----------
     cfg = get_config(SERVE_ARCH).model
     prompt_lens = sorted({len(p) for p in serve_prompts(cfg.vocab)})
@@ -866,7 +1136,8 @@ def main() -> int:
     f = flash_rows[2048]
     print(json.dumps({"kernels": [
         minplus_entry("f32", "minplus", launches, max_err),
-        minplus_entry("hops", "minplus_hops", hop_launches, hop_err), {
+        dict(minplus_entry("hops", "minplus_hops", hop_launches, hop_err),
+             launches_fault_path=fault_launches), {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:24",
@@ -883,6 +1154,7 @@ def main() -> int:
         "library_ms_by_S": {S: r["library_ms"]
                             for S, r in flash_rows.items()}}]}),
         flush=True)
+    emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """The port's simulator against the JAX reference: counter dicts equal
 (``==``) on the reference's own tables (carried over by
-``repro_torch.convert``) for the static cases of test_netsim_csr.py and
-the saturation search.
+``repro_torch.convert``) for the static cases of test_netsim_csr.py,
+the saturation search and each option beyond the static path on DOR
+tables (the full mode suite is test_torch_netsim_modes.py).
 
 The reference simulator calls ``jax.experimental.disable_x64``, which
 this JAX release removed; the fixtures below patch it back only while
@@ -21,7 +22,9 @@ import torch
 
 from repro.core import fault as F, netsim as NS, routing as R, \
     topology as T
-from repro.core.traffic import TrafficPattern as RefTP
+from repro.core.traffic import PhasedTraffic as RefPhased, \
+    TenantSpec as RefTenant, TrafficPattern as RefTP, \
+    compose_tenants as ref_compose
 from repro_torch import convert
 from repro_torch.core import netsim as PNS, topology as PT
 from repro_torch.core.traffic import (PhasedTraffic, TenantSpec,
@@ -147,6 +150,8 @@ def test_saturation_point_equals_reference(ref_netsim):
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch.core.pipeline, repro_torch.core.netsim\n"
+            "import repro_torch.core.fault, repro_torch.core.repair\n"
+            "import repro_torch.core.chaos\n"
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'repro'))\n"
@@ -168,19 +173,36 @@ def test_sweep_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["adaptive", "fault", "dense", "bursty",
                                   "phased", "tenants"])
-def test_not_yet_ported_options_raise(flag):
+def test_extension_options_equal_reference(flag, ref_netsim):
+    """Each option beyond the static path on the DOR tables of 4^3, one
+    at a time: the port's dicts equal the reference's."""
+    topo = T.pt((4, 4, 4))
+    tab = NS.dor_tables(topo)
     ptab = PNS.dor_tables(PT.pt((4, 4, 4)))
     n = ptab.n
-    kw = dict(cycles=10, warmup=5, device="cpu")
-    uni = TrafficPattern.uniform(n)
-    kw.update({
-        "adaptive": dict(adaptive=object()),
-        "fault": dict(fault=(5, [0])),
-        "dense": dict(kernel="dense"),
-        "bursty": dict(traffic=uni.with_burst(8)),
-        "phased": dict(traffic=PhasedTraffic("p", (uni, uni), (4, 4))),
-        "tenants": dict(traffic=compose_tenants(n, [TenantSpec(
-            "job", np.arange(n), np.ones((n, n)) - np.eye(n))])),
-    }[flag])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PNS.sweep(ptab, [0.1], **kw)
+    nodes = (np.arange(n // 2), np.arange(n // 2, n))
+    ref_kw, kw = {
+        "adaptive": (dict(adaptive=NS.adaptive_spec(topo)),
+                     dict(adaptive=PNS.adaptive_spec(PT.pt((4, 4, 4))))),
+        "fault": (dict(fault=(150, [0, 5, 9])),) * 2,
+        "dense": (dict(kernel="dense"),) * 2,
+        "bursty": (dict(traffic=RefTP.uniform(n).with_burst(8)),
+                   dict(traffic=TrafficPattern.uniform(n).with_burst(8))),
+        "phased": (dict(traffic=RefPhased("p", (RefTP.uniform(n),
+                                                RefTP.hotspot(n)), (40, 24))),
+                   dict(traffic=PhasedTraffic(
+                       "p", (TrafficPattern.uniform(n),
+                             TrafficPattern.hotspot(n)), (40, 24)))),
+        "tenants": (dict(traffic=ref_compose(n, [
+            RefTenant(f"job{k}", v, np.ones((len(v),) * 2))
+            for k, v in enumerate(nodes)])),
+            dict(traffic=compose_tenants(n, [
+                TenantSpec(f"job{k}", v, np.ones((len(v),) * 2))
+                for k, v in enumerate(nodes)]))),
+    }[flag]
+    kw_run = dict(cycles=400, warmup=100)
+    want = ref_netsim.sweep(tab, [0.1, 0.3], **kw_run, **ref_kw)
+    got = PNS.sweep(ptab, [0.1, 0.3], device="cpu", **kw_run, **kw)
+    assert got == want
+    for r in got:
+        assert r["injected_total"] == r["consumed_total"] + r["in_flight"]
