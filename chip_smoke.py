@@ -1,18 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels from the sources in this checkout (both at once), measures the
+kernels from the sources in this checkout (all three at once), measures the
 issue rates of the instructions the (min,+) kernel is built from, holds
 each kernel and each of its paths against its plain torch version on
-the card, drives the three main paths at full size -- route-and-simulate
+the card, drives the four main paths at full size -- route-and-simulate
 (PT 8x8x8 and the synthesized TONS_SYM 256 fabric, and the APSP of the
 full PT 16^3 pod), the fault-tolerant path (every simulator mode held
 CUDA against CPU and dense against CSR at 4x4x8; an OCS fault mid-sweep
 under static and adaptive escape-VC routing and the hotspot acceptance
 at PT 8x8x8; a serving build and online repair of PDTT 12^3; the chaos
-acceptance campaign on PDTT 8^3 with its replay) and serving
-(qwen2.5-3b at its published widths, 8 ragged requests through the
-port's ``Server``, then one 32768-token prefill) -- checks that the
-simulator's and the model's CUDA and CPU runs agree, and prints one
-JSON line per result.
+acceptance campaign on PDTT 8^3 with its replay), synthesis and
+workload co-design (the csr_spmv kernel on the 4x8x8 synthesis LP, PDHG
+equal on CUDA and the CPU, TONS synthesis of 4x8x8 with PDHG rounds on
+the card and its routed fabric, ``evaluate_workload`` of the two stored
+workload fabrics) and serving (qwen2.5-3b at its published widths, 8
+ragged requests through the port's ``Server``, then one 32768-token
+prefill) -- checks that the simulator's, the LP solver's and the
+model's CUDA and CPU runs agree, and prints one JSON line per result.
 
     python3 chip_smoke.py
 
@@ -728,6 +731,12 @@ def _conserving(trace) -> bool:
                for r in trace)
 
 
+# the live reference's 8^3 hotspot saturations at the acceptance config
+# (test_netsim_adaptive.py: K=4, local_search_rounds=1), JAX 0.9.0; the
+# port's CPU run of phase_fault_sweep's cell gives the same values
+HOTSPOT_SAT = {"static": 0.0336015625, "adaptive": 0.033916015625}
+
+
 def _escape_config(PipelineConfig, **kw):
     """The adaptive suite's routing: robust allowed turns at 4 VCs, VC 0
     kept free for the escape lane."""
@@ -801,11 +810,14 @@ def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
     """The first OCS colour dies at ``t_fault`` under static and adaptive
     routing (5 rates); packets are conserved in every lane. Then kernels
     per cycle and busy share of the faulted sweep under the profiler, and
-    the reference's nightly acceptance: saturation under an 8-endpoint
-    hotspot, adaptive not below static."""
+    saturation under an 8-endpoint hotspot, adaptive not below static,
+    each equal to the live reference's value (HOTSPOT_SAT). The routing
+    is the reference's acceptance config (test_netsim_adaptive.py's
+    ``_build``, as in phase_sim_modes)."""
     topo = PT.pt(dims)
     t0 = time.perf_counter()
-    rp = route_pod(topo, _escape_config(PipelineConfig), device=dev)
+    rp = route_pod(topo, _escape_config(PipelineConfig, K=4,
+                                        local_search_rounds=1), device=dev)
     route_s = time.perf_counter() - t0
     check(rp.unreachable == 0, "fault_sweep: unreachable pairs")
     color = PF.colors_in_use(topo)[0]
@@ -853,6 +865,9 @@ def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
          frac=0.4, saturation=sats, saturation_s=secs, **sat)
     check(sats["adaptive"] >= sats["static"] and sats["adaptive"] > 0,
           f"adaptive saturation below static under hotspot: {sats}")
+    check(dims != (8, 8, 8) or sats == HOTSPOT_SAT,
+          f"hotspot saturations {sats} differ from the reference's "
+          f"{HOTSPOT_SAT}")
 
 
 def phase_repair(PR, PF, PT, mp, dims=(12, 12, 12), dev="cuda"):
@@ -962,6 +977,263 @@ def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Synthesis and workload co-design: the LP stack on the csr_spmv kernel
+# ---------------------------------------------------------------------------
+
+# cuSPARSE sums a row in another order: a reordered sum of k terms moves
+# by at most (k - 1) * eps * (the sum of their magnitudes); k <= 8,256 at
+# 4x8x8 gives 9.2e-13 with eps = 2^-53, so 1e-11 of the row's magnitude
+SPMV_LIB_RTOL = 1e-11
+# NVIDIA's H100 SXM data sheet: FP64 outside the tensor cores
+FP64_FLOPS = 34e12
+SYNTH_DIMS = (4, 8, 8)
+PDHG_DIMS, PDHG_ITERS = (4, 4, 4), 12000
+WL_ARCHS = ("deepseek-moe-16b", "gemma-7b")
+# benchmarks/bench_workload.py's evaluation
+WL_SAT = dict(step=0.02, cycles=2000, warmup=600)
+WL_RATES, WL_CYCLES = [0.1, 0.4], 1200
+
+
+def spmv_bound_ms(rows: int, cols: int, nnz: int) -> tuple:
+    """Least time for one CSR product: the row offsets (int64), column
+    indices (int32), values and vector (f64) read once and the output
+    written once at the memory rate, or 2 * nnz f64 operations at the
+    FP64 rate; the larger, and which one it is."""
+    t_bytes = (8.0 * (rows + 1) + 12.0 * nnz + 8.0 * cols + 8.0 * rows) \
+        / PEAK_BYTES * 1e3
+    t_ops = 2.0 * nnz / FP64_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_spmv_parity(KS, ref, PL, PS, PT, dims=SYNTH_DIMS, dev="cuda"):
+    """The csr_spmv kernel on A and A^T of the Ruiz-scaled synthesis LP
+    at ``dims`` (the PDHG loop's two products) and on a ragged CSR with
+    duplicates and empty rows: equal (``torch.equal``) to the plain
+    version on the CPU, within SPMV_LIB_RTOL of torch.sparse's CSR mv
+    (cuSPARSE, on the same matrix with duplicates summed); then timed at
+    the LP's two shapes. Returns the timings
+    by shape and the largest difference from the plain version."""
+    import scipy.sparse as sp
+    lp = PS.build_synthesis_lp(PT.Pod(dims))
+    vals_s, _, _ = PL._ruiz_scale(lp.A)
+    rows, cols = lp.A.rows.astype(np.int64), lp.A.cols.astype(np.int64)
+    m, n = lp.A.shape
+    rng = np.random.default_rng(0)
+    r_rows = rng.integers(0, 4000, 60000)        # rows 4000.. stay empty
+    r_rows[:5000] = r_rows[5000:10000]
+    r_cols = rng.integers(0, 3000, 60000)
+    r_cols[:5000] = r_cols[5000:10000]           # duplicate entries
+    cases = {"A x": (rows, cols, vals_s, m, n),
+             "AT y": (cols, rows, vals_s, n, m),
+             "ragged": (r_rows, r_cols, rng.normal(size=60000) *
+                        np.exp(rng.normal(size=60000) * 4), 4500, 3000)}
+    out, worst = {}, 0.0
+    for name, (r, c, v, nr, nc) in cases.items():
+        x = torch.from_numpy(rng.normal(size=nc))
+        cpu = PL.CSR.from_coo(r, c, v, nr, "cpu")
+        want = cpu @ x
+        a = PL.CSR.from_coo(r, c, v, nr, dev)
+        xd = x.to(dev)
+        got = KS.csr_spmv(a.indptr, a.indices, a.vals, xd)
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max())
+        worst = max(worst, err)
+        # torch.sparse takes sorted, distinct columns in each row: the
+        # same matrix with its duplicates summed (scipy)
+        sc = sp.coo_matrix((v, (r, c)), shape=(nr, nc)).tocsr()
+        sc.sort_indices()
+        lib = torch.sparse_csr_tensor(
+            torch.as_tensor(sc.indptr.astype(np.int64), device=dev),
+            torch.as_tensor(sc.indices.astype(np.int64), device=dev),
+            torch.as_tensor(sc.data, device=dev), (nr, nc),
+            check_invariants=True)
+        lib_out = (lib @ xd).cpu()
+        mag = ref.csr_spmv_ref(cpu.indptr, cpu.indices, cpu.vals.abs(),
+                               x.abs())
+        lib_ok = bool(((lib_out - want).abs() <= SPMV_LIB_RTOL * mag).all())
+        lens = cpu.indptr.diff()
+        line = dict(phase="spmv_parity", operand=name, rows=nr, cols=nc,
+                    nnz=len(v), longest_row=int(lens.max()),
+                    median_row=float(lens.double().median()),
+                    empty_rows=int((lens == 0).sum()),
+                    equal_to_cpu_plain=torch.equal(got.cpu(), want),
+                    max_abs_err=err, library_within_rtol=lib_ok,
+                    library_max_abs_diff=float((lib_out - want).abs().max()),
+                    library_rtol=SPMV_LIB_RTOL)
+        if name != "ragged":
+            bound, by = spmv_bound_ms(nr, nc, len(v))
+            row = dict(
+                ms=cuda_ms(lambda: KS.csr_spmv(a.indptr, a.indices, a.vals,
+                                               xd), 200),
+                device_ms=device_ms(lambda: KS.run(a.indptr, a.indices,
+                                                   a.vals, xd), 50,
+                                    "csr_spmv"),
+                plain_ms=cuda_ms(lambda: ref.csr_spmv_ref(
+                    a.indptr, a.indices, a.vals, xd), 50),
+                library_ms=cuda_ms(lambda: lib @ xd, 200),
+                bound_ms=bound, bound_by=by)
+            row["bound_share"] = bound / row["device_ms"]
+            out[name] = row
+            line.update(row)
+        emit(**line)
+        check(line["equal_to_cpu_plain"],
+              f"csr_spmv {name} differs from the plain version: {err}")
+        check(lib_ok, f"csr_spmv {name} is not within {SPMV_LIB_RTOL} of "
+              "torch.sparse")
+    return out, worst
+
+
+def phase_pdhg_determinism(KS, PL, PS, PT, dims=PDHG_DIMS,
+                           iters=PDHG_ITERS, dev="cuda"):
+    """solve_pdhg on the synthesis LP at ``dims`` on the card and on the
+    CPU (one thread): x, y, obj, iters and status equal."""
+    lp = PS.build_synthesis_lp(PT.Pod(dims))
+    kw = dict(max_iters=iters, tol=2e-4)
+    launches0 = KS.launches
+    t0 = time.perf_counter()
+    got = PL.solve_pdhg(lp.c, lp.A, lp.b, lp.lo, lp.hi, device=dev, **kw)
+    cuda_s = time.perf_counter() - t0
+    launches = KS.launches - launches0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    want = PL.solve_pdhg(lp.c, lp.A, lp.b, lp.lo, lp.hi, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    same = {k: bool(np.array_equal(getattr(got, k), getattr(want, k)))
+            for k in ("x", "y", "obj", "iters", "status")}
+    emit(phase="pdhg_determinism", dims=list(dims), lp_shape=list(lp.A.shape),
+         nnz=len(lp.A.vals), iters=got.iters, status=got.status,
+         lp_lambda=-got.obj, rel_gap=got.rel_gap,
+         primal_infeas=got.primal_infeas, cuda_s=cuda_s, cpu_s=cpu_s,
+         iters_per_s=got.iters / cuda_s, csr_spmv_launches=launches,
+         equal=same)
+    check(all(same.values()), f"solve_pdhg CUDA and CPU differ: {same}")
+    check(launches == 2 * got.iters or dev == "cpu",
+          f"{launches} csr_spmv launches for {got.iters} iterations")
+
+
+def phase_synthesis(PS, MC, dims=SYNTH_DIMS, dev="cuda", **synth_kw):
+    """``synthesize(dims, prefer="pdhg")`` on the card and the routed
+    fabric's end-to-end scalars; returns the result and each PDHG
+    round's arguments and LPResult (for the repeat below)."""
+    solves = []
+    solve_pdhg = PS.solve_pdhg
+
+    def recorded(c, A, b, lo, hi, **kw):
+        res = solve_pdhg(c, A, b, lo, hi, **kw)
+        solves.append(((c, A, b, lo.copy(), hi.copy()), kw, res))
+        return res
+
+    PS.solve_pdhg = recorded
+    try:
+        t0 = time.perf_counter()
+        res = PS.synthesize(dims, prefer="pdhg", device=dev, **synth_kw)
+        synth_s = time.perf_counter() - t0
+    finally:
+        PS.solve_pdhg = solve_pdhg
+    log = res.stats["solves"]
+    iters = sum(s["iters"] for s in log)
+    t0 = time.perf_counter()
+    ee = PS.evaluate_end_to_end(res.topology, device=dev)
+    e2e_s = time.perf_counter() - t0
+    n = res.topology.n
+    emit(phase="synthesis_4x8x8", dims=list(dims), n=n, synth_s=synth_s,
+         build_s=res.stats["build_s"], n_var=res.stats["n_var"],
+         n_rows=res.stats["n_rows"], nnz=res.stats["nnz"],
+         interval=res.stats["interval"], rounds=len(res.lambdas),
+         pdhg_iters=iters, pdhg_s=sum(s["s"] for s in log),
+         iters_per_s=iters / max(sum(s["s"] for s in log), 1e-9),
+         lambdas=res.lambdas,
+         rel_gap=[r.rel_gap for _, _, r in solves],
+         primal_infeas=[r.primal_infeas for _, _, r in solves],
+         statuses=[s["status"] for s in log],
+         basu_bound=MC.mcf_upper_bound_basu(n), n_orbits=res.n_orbits,
+         n_fixed=res.n_fixed, n_completed=res.n_completed,
+         status=res.status, end_to_end=ee, end_to_end_s=e2e_s)
+    check(res.status == "ok" and all(s["solver"] == "pdhg" for s in log),
+          f"synthesis: status {res.status}, solvers {log}")
+    deg = np.bincount(res.topology.edges().ravel(), minlength=n)
+    check((deg == 6).all(), "synthesis: the fabric is not radix-6")
+    check(ee["deadlock_free"] and ee["unreachable"] == 0,
+          f"synthesis: routed fabric {ee}")
+    return res, ee, solves
+
+
+def phase_synthesis_repeat(PL, solves):
+    """The first PDHG round's LP solved again: x and y equal."""
+    (c, A, b, lo, hi), kw, first = solves[0]
+    t0 = time.perf_counter()
+    again = PL.solve_pdhg(c, A, b, lo, hi, **kw)
+    same = bool(np.array_equal(again.x, first.x)
+                and np.array_equal(again.y, first.y)
+                and again.iters == first.iters)
+    emit(phase="synthesis_4x8x8_repeat", iters=again.iters,
+         seconds=time.perf_counter() - t0, equal_x_y=same)
+    check(same, "synthesis: the first round's LP solved twice differs")
+
+
+def load_workload_fabric(convert, arch):
+    return convert.load_fabric(
+        ROOT / "benchmarks" / "results" / f"tons_wl_128_{arch}.pkl",
+        (4, 4, 8), name=f"TONS_WL 128 {arch}")
+
+
+def phase_workload(PW, convert, PipelineConfig, dev="cuda", sat=WL_SAT):
+    """``evaluate_workload`` of the two stored workload fabrics, each on
+    its arch's analytic demand (train_4k), routed and swept as
+    bench_workload.py does; the reference's stored CPU values beside
+    them as context only (ROADMAP caveat R2)."""
+    stored = json.loads((ROOT / "BENCH_workload.json").read_text())
+    stored = stored["sizes"]["n128"]["workloads"]
+    cfg = PipelineConfig(K=4, engine="array", local_search_rounds=1)
+    for arch in WL_ARCHS:
+        topo = load_workload_fabric(convert, arch)
+        wd = PW.workload_demand((4, 4, 8), arch)
+        t0 = time.perf_counter()
+        ev = PW.evaluate_workload(topo, wd, trace=PW.replay_trace(wd),
+                                  cfg=cfg, sat_kwargs=sat, device=dev)
+        secs = time.perf_counter() - t0
+        emit(phase="workload_128", arch=arch, fabric=topo.name,
+             demand=dict(w_same_cube=wd.w_same_cube, w_ring=wd.w_ring,
+                         w_uniform=wd.w_uniform), seconds=secs, **sat,
+             **{k: ev[k] for k in ("weighted_mcf", "l_max",
+                                   "trace_saturation")},
+             reference_cpu_stored=stored.get(arch, {}).get("specialized"))
+        check(ev["weighted_mcf"] > 0 and 0 < ev["trace_saturation"] <= 1,
+              f"workload {arch}: {ev}")
+
+
+def phase_workload_determinism(PW, PNS, convert, PipelineConfig, route_pod,
+                               dev="cuda"):
+    """The trace replay of the MoE fabric (its demand-weighted routing)
+    at 2 rates and WL_CYCLES cycles: the CUDA sweep equals the CPU's."""
+    arch = WL_ARCHS[0]
+    topo = load_workload_fabric(convert, arch)
+    wd = PW.workload_demand((4, 4, 8), arch)
+    rp = route_pod(topo, PipelineConfig(K=4, engine="array",
+                                        local_search_rounds=1),
+                   pair_weight=PW.demand_pair_weight(wd), device=dev)
+    trace = PW.replay_trace(wd)
+    kw = dict(traffic=trace, cycles=WL_CYCLES, warmup=WL_CYCLES // 3)
+    t0 = time.perf_counter()
+    got = PNS.sweep(rp.tables, WL_RATES, device=dev, **kw)
+    cuda_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    want = PNS.sweep(rp.tables, WL_RATES, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    emit(phase="workload_128_determinism", arch=arch, rates=WL_RATES,
+         cycles=WL_CYCLES, phases=list(trace.cycles), equal=got == want,
+         delivered=[r["delivered"] for r in got], cuda_s=cuda_s,
+         cpu_s=cpu_s)
+    check(got == want, "workload replay: CUDA and CPU sweeps differ")
+    check(_conserving(got), "workload replay: conservation fails")
+
+
 def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
     the union of their CUDA kernels' time intervals in a profiler trace,
@@ -1011,11 +1283,12 @@ def main() -> int:
         return 2
     from repro_torch import convert
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import chaos as PX, fault as PF, netsim as PNS, \
-        repair as PR, topology as PT, traffic as TR
+    from repro_torch.core import chaos as PX, fault as PF, lp as PL, \
+        mcf as MC, netsim as PNS, repair as PR, synthesis as PS, \
+        topology as PT, traffic as TR, workload as PW
     from repro_torch.core.pipeline import PipelineConfig, route_pod
-    from repro_torch.kernels import flash_attention as fa, minplus as mp, \
-        nvcc, ops, ref
+    from repro_torch.kernels import csr_spmv as KS, \
+        flash_attention as fa, minplus as mp, nvcc, ops, ref
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import model as PM
 
@@ -1034,14 +1307,18 @@ def main() -> int:
          fp32_instr_per_s=ops_per_s, bf16_flops_per_s=bf16_flops_per_s)
     print(card, flush=True)
 
-    # one nvcc per kernel source, both started together
+    # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(k.library) for k in (mp, fa)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(k.library) for k in (mp, fa, KS)]:
             f.result()
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds={"minplus": mp.build_seconds,
-                       "flash_attention": fa.build_seconds})
+                       "flash_attention": fa.build_seconds,
+                       "csr_spmv": KS.build_seconds})
+    emit(phase="csr_spmv_build", ptxas=[
+        line.strip() for line in nvcc.LOGS.get("csr_spmv", "").splitlines()
+        if "Used" in line or "spill" in line])
     sass = sass_counts(fa.library()._name)
     ptxas = [line for line in nvcc.LOGS.get("flash_attention", "").splitlines()
              if "ptxas" in line]
@@ -1062,7 +1339,7 @@ def main() -> int:
     mp.launches = mp.hop_launches = 0
     rp8 = drive("PT 8x8x8", PT.pt((8, 8, 8)), PNS, route_pod)
     hops_8 = mp.hop_launches
-    drive("TONS_SYM 256", tons, PNS, route_pod)
+    rp_tons = drive("TONS_SYM 256", tons, PNS, route_pod)
     launches, hop_launches = mp.launches, mp.hop_launches
     emit(phase="launches", minplus_hops_after_pt8=hops_8,
          minplus_hops_main_path=hop_launches, minplus_f32_main_path=launches)
@@ -1107,6 +1384,37 @@ def main() -> int:
          seconds=t[-1] - t[0])
     check(hops_chaos > 0, "the chaos build never launched the hop kernel")
 
+    # ---- synthesis and workload co-design: the kernel first, then the path -
+    t = [time.perf_counter()]
+    spmv_rows, spmv_err = phase_spmv_parity(KS, ref, PL, PS, PT)
+    phase_pdhg_determinism(KS, PL, PS, PT)
+    t.append(time.perf_counter())
+    KS.launches = mp.launches = mp.hop_launches = 0
+    _, ee, solves = phase_synthesis(PS, MC)
+    hops_synth = mp.hop_launches
+    spmv_synth = KS.launches
+    t.append(time.perf_counter())
+    phase_workload(PW, convert, PipelineConfig)
+    t.append(time.perf_counter())
+    spmv_launches, synth_hops = KS.launches, mp.hop_launches
+    emit(phase="synthesis_path_launches", csr_spmv=spmv_launches,
+         csr_spmv_synthesis=spmv_synth, minplus_hops=synth_hops,
+         minplus_hops_synthesis=hops_synth,
+         minplus_hops_workload=synth_hops - hops_synth,
+         minplus_f32=mp.launches,
+         tons_sym_256_stored=dict(l_max=rp_tons.l_max,
+                                  avg_hops=rp_tons.avg_hops),
+         synthesized_4x8x8=dict(l_max=ee["l_max"], avg_hops=ee["avg_hops"]))
+    check(spmv_synth > 0, "synthesis never launched the csr_spmv kernel")
+    check(hops_synth > 0 and synth_hops > hops_synth,
+          "synthesis or workload evaluation never launched the hop path")
+    phase_synthesis_repeat(PL, solves)
+    phase_workload_determinism(PW, PNS, convert, PipelineConfig, route_pod)
+    t.append(time.perf_counter())
+    emit(phase="synthesis_path_seconds", phase_s=dict(zip(
+        ("spmv_parity+pdhg_determinism", "synthesis_4x8x8", "workload_128",
+         "repeat+determinism"), np.diff(t).tolist())), seconds=t[-1] - t[0])
+
     # ---- the serving path: flash kernel first, then the main path ----------
     cfg = get_config(SERVE_ARCH).model
     prompt_lens = sorted({len(p) for p in serve_prompts(cfg.vocab)})
@@ -1137,7 +1445,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         minplus_entry("f32", "minplus", launches, max_err),
         dict(minplus_entry("hops", "minplus_hops", hop_launches, hop_err),
-             launches_fault_path=fault_launches), {
+             launches_fault_path=fault_launches,
+             launches_synthesis_path=synth_hops), {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:24",
@@ -1152,8 +1461,16 @@ def main() -> int:
         "library_ms": f["library_ms"],
         "ms_by_S": {S: r["ms"] for S, r in flash_rows.items()},
         "library_ms_by_S": {S: r["library_ms"]
-                            for S, r in flash_rows.items()}}]}),
-        flush=True)
+                            for S, r in flash_rows.items()}}, {
+        "name": "csr_spmv_f64", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/csr_spmv.cu",
+        "replaces": "src/repro/core/lp.py:94", "launches": spmv_launches,
+        "parity": "exact vs the plain version on the CPU",
+        "max_abs_err": spmv_err, "shape": "A^T y of the 4x8x8 synthesis LP",
+        **{k: spmv_rows["AT y"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "by_shape": spmv_rows}]}), flush=True)
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import flash_attention as _fa, minplus as _mp, ref
+from repro_torch.kernels import csr_spmv as _spmv, \
+    flash_attention as _fa, minplus as _mp, ref
 
 BIG = 1e9             # "no path yet" in the f32 hop matrix
 UNREACHABLE = 1e8     # distances at or above this are unreachable
@@ -32,6 +33,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
     raise ValueError(f"flash_attention has no path for device {q.device}")
+
+
+def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
+             vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[r] = sum_e vals[e] * x[indices[e]] over CSR row r in float64,
+    each row summed in CSR order (bit-identical on both paths)."""
+    if x.device.type == "cuda":
+        return _spmv.csr_spmv(indptr, indices, vals, x)
+    if x.device.type == "cpu":
+        return ref.csr_spmv_ref(indptr, indices, vals, x)
+    raise ValueError(f"csr_spmv has no path for device {x.device}")
 
 
 def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,22 @@ def minplus_hops_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def csr_spmv_ref(indptr: torch.Tensor, indices: torch.Tensor,
+                 vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[r] = sum_e vals[e] * x[indices[e]] over row r's CSR entries.
+
+    The products, then ``index_add_`` over the row ids on the CPU, which
+    adds them one at a time in index order into a zero vector: each row
+    is summed left to right from 0.0, as ``csrc/csr_spmv.cu`` sums it
+    (and as numpy's ``np.add.at`` sums the COO in order).
+    """
+    rows = indptr.numel() - 1
+    row_of = torch.repeat_interleave(
+        torch.arange(rows, device=indptr.device), indptr.diff())
+    out = torch.zeros(rows, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, row_of, vals * x[indices.long()])
+
+
 def apsp_ref(adj: torch.Tensor, max_iters: int | None = None
              ) -> torch.Tensor:
     """All-pairs shortest paths by repeated (min,+) squaring of the hop

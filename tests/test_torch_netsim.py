@@ -152,6 +152,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.core.pipeline, repro_torch.core.netsim\n"
             "import repro_torch.core.fault, repro_torch.core.repair\n"
             "import repro_torch.core.chaos\n"
+            "import repro_torch.core.lp, repro_torch.core.mcf\n"
+            "import repro_torch.core.smallgraphs, repro_torch.core.synthesis\n"
+            "import repro_torch.core.demand, repro_torch.core.collectives\n"
+            "import repro_torch.core.workload\n"
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'repro'))\n"
