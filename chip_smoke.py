@@ -9,10 +9,12 @@ CUDA against CPU and dense against CSR at 4x4x8; an OCS fault mid-sweep
 under static and adaptive escape-VC routing and the hotspot acceptance
 at PT 8x8x8; a serving build and online repair of PDTT 12^3; the chaos
 acceptance campaign on PDTT 8^3 with its replay), synthesis and
-workload co-design (the csr_spmv kernel on the 4x8x8 synthesis LP, PDHG
-equal on CUDA and the CPU, TONS synthesis of 4x8x8 with PDHG rounds on
-the card and its routed fabric, ``evaluate_workload`` of the two stored
-workload fabrics) and serving (qwen2.5-3b at its published widths, 8
+workload co-design (the csr_spmv kernel's DADD latency probe, the kernel
+on the 4x8x8 and 8^3 synthesis LPs and on rows of up to 70,000 entries,
+PDHG with its chunk as a CUDA graph equal on CUDA and the CPU, TONS
+synthesis of 4x8x8 with PDHG rounds on the card and its routed fabric,
+one graphed chunk of its first round against the CPU,
+``evaluate_workload`` of the two stored workload fabrics) and serving (qwen2.5-3b at its published widths, 8
 ragged requests through the port's ``Server``, then one 32768-token
 prefill) -- checks that the simulator's, the LP solver's and the
 model's CUDA and CPU runs agree, and prints one JSON line per result.
@@ -35,6 +37,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from hashlib import sha256
 from pathlib import Path
 
 import numpy as np
@@ -982,13 +985,29 @@ def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
 # ---------------------------------------------------------------------------
 
 # cuSPARSE sums a row in another order: a reordered sum of k terms moves
-# by at most (k - 1) * eps * (the sum of their magnitudes); k <= 8,256 at
-# 4x8x8 gives 9.2e-13 with eps = 2^-53, so 1e-11 of the row's magnitude
+# by at most (k - 1) * eps * (the sum of their magnitudes); k <= 16,576 at
+# 8^3 gives 1.9e-12 with eps = 2^-53, so 1e-11 of the row's magnitude
 SPMV_LIB_RTOL = 1e-11
 # NVIDIA's H100 SXM data sheet: FP64 outside the tensor cores
 FP64_FLOPS = 34e12
 SYNTH_DIMS = (4, 8, 8)
+SPMV_DIMS = (SYNTH_DIMS, (8, 8, 8))
 PDHG_DIMS, PDHG_ITERS = (4, 4, 4), 12000
+# PR 16's solve_pdhg at PDHG_DIMS, PDHG_ITERS (its CUDA run equalled its
+# CPU run; these from its CPU run): no row of the 4^3 LP exceeds
+# csr_spmv.SEGMENT, so the segmented order must leave lambda and the
+# iterates' bits (sha256 of x and y) as they were. rel_gap is reckoned on
+# the host by numpy and BLAS reductions, whose order follows the host's
+# CPU: the same x and y give 0.6026496183832573 on the card's host, so it
+# is held to PR16_REL_GAP_RTOL
+PR16_PDHG = dict(
+    lp_lambda=0.002114281365376032, rel_gap=0.6026496183832595,
+    x="a90646d0142c15f793ab400a2c306b4edcc299f2efb3ea809ff63435c512980e",
+    y="14455d0652540a66bcfae86d4abad55c0af0777bd71e058be1a62c4fd4e2919d")
+PR16_REL_GAP_RTOL = 1e-12
+# PR 16's lambda per round of synthesize((4, 8, 8), prefer="pdhg") on the
+# card (PERF.md section 5)
+PR16_LAMBDAS = (0.0024193284642204, 0.0020397131974831, 0.0022107287458099)
 WL_ARCHS = ("deepseek-moe-16b", "gemma-7b")
 # benchmarks/bench_workload.py's evaluation
 WL_SAT = dict(step=0.02, cycles=2000, warmup=600)
@@ -1006,36 +1025,71 @@ def spmv_bound_ms(rows: int, cols: int, nnz: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_spmv_parity(KS, ref, PL, PS, PT, dims=SYNTH_DIMS, dev="cuda"):
-    """The csr_spmv kernel on A and A^T of the Ruiz-scaled synthesis LP
-    at ``dims`` (the PDHG loop's two products) and on a ragged CSR with
-    duplicates and empty rows: equal (``torch.equal``) to the plain
-    version on the CPU, within SPMV_LIB_RTOL of torch.sparse's CSR mv
-    (cuSPARSE, on the same matrix with duplicates summed); then timed at
-    the LP's two shapes. Returns the timings
-    by shape and the largest difference from the plain version."""
+def phase_spmv_probe(KS, sm_clock_hz):
+    """The latency of a dependent f64 add in SM cycles (``csr_spmv.probe``),
+    which sets the order bound of a row's chain of adds. Returns the
+    median cycles and the seconds one such add takes at the SM clock."""
+    lat = KS.probe()
+    emit(phase="spmv_probe", dadd_latency_cycles=lat,
+         sm_clock_mhz=sm_clock_hz / 1e6,
+         dadd_ns=lat["median"] / sm_clock_hz * 1e9)
+    check(lat["threads"] > 0 and 1 <= lat["median"] <= 64,
+          f"implausible DADD latency: {lat}")
+    return lat["median"], lat["median"] / sm_clock_hz
+
+
+def segments_coo(rng, seg, n=5000):
+    """Rows of 0 to 70,000 entries, around every class boundary of the
+    kernel's plan and the order's segments of ``seg``, interleaved at
+    random, values over many binades."""
+    lens = (0, 1, 31, 32, 33, 256, 257, 1000, seg - 1, seg, seg + 1,
+            2 * seg, 2 * seg + 1, 70000)
+    rows = rng.permutation(np.repeat(np.arange(len(lens)), lens))
+    nnz = len(rows)
+    return (rows, rng.integers(0, n, nnz),
+            rng.normal(size=nnz) * np.exp(rng.normal(size=nnz) * 4),
+            len(lens), n)
+
+
+def phase_spmv_parity(KS, ref, PL, PS, PT, dadd_s, dims=SPMV_DIMS,
+                      dev="cuda"):
+    """The csr_spmv kernel on A and A^T of the Ruiz-scaled synthesis LP at
+    each of ``dims`` (the PDHG loop's two products), on a ragged CSR with
+    duplicates and empty rows and on rows of 0 to 70,000 entries
+    (``segments``): equal (``torch.equal``) to the plain version on the
+    CPU, within SPMV_LIB_RTOL of torch.sparse's CSR mv (cuSPARSE, on the
+    same matrix with duplicates summed); then timed at the LP shapes
+    beside two bounds: bytes, and the order's longest chain of adds at
+    ``dadd_s`` seconds each. Returns the timings by shape and the
+    largest difference from the plain version."""
     import scipy.sparse as sp
-    lp = PS.build_synthesis_lp(PT.Pod(dims))
-    vals_s, _, _ = PL._ruiz_scale(lp.A)
-    rows, cols = lp.A.rows.astype(np.int64), lp.A.cols.astype(np.int64)
-    m, n = lp.A.shape
     rng = np.random.default_rng(0)
+    cases = {}
+    for d in dims:
+        lp = PS.build_synthesis_lp(PT.Pod(d))
+        vals_s, _, _ = PL._ruiz_scale(lp.A)
+        rows, cols = lp.A.rows.astype(np.int64), lp.A.cols.astype(np.int64)
+        m, n = lp.A.shape
+        tag = "x".join(map(str, d))
+        cases[f"A x {tag}"] = (rows, cols, vals_s, m, n)
+        cases[f"AT y {tag}"] = (cols, rows, vals_s, n, m)
     r_rows = rng.integers(0, 4000, 60000)        # rows 4000.. stay empty
     r_rows[:5000] = r_rows[5000:10000]
     r_cols = rng.integers(0, 3000, 60000)
     r_cols[:5000] = r_cols[5000:10000]           # duplicate entries
-    cases = {"A x": (rows, cols, vals_s, m, n),
-             "AT y": (cols, rows, vals_s, n, m),
-             "ragged": (r_rows, r_cols, rng.normal(size=60000) *
-                        np.exp(rng.normal(size=60000) * 4), 4500, 3000)}
+    cases["ragged"] = (r_rows, r_cols, rng.normal(size=60000) *
+                       np.exp(rng.normal(size=60000) * 4), 4500, 3000)
+    cases["segments"] = segments_coo(rng, KS.SEGMENT)
     out, worst = {}, 0.0
     for name, (r, c, v, nr, nc) in cases.items():
-        x = torch.from_numpy(rng.normal(size=nc))
+        x = torch.from_numpy(rng.normal(size=nc) *
+                             np.exp(rng.normal(size=nc) * 4)
+                             if name == "segments" else rng.normal(size=nc))
         cpu = PL.CSR.from_coo(r, c, v, nr, "cpu")
         want = cpu @ x
         a = PL.CSR.from_coo(r, c, v, nr, dev)
         xd = x.to(dev)
-        got = KS.csr_spmv(a.indptr, a.indices, a.vals, xd)
+        got = KS.csr_spmv(a.indptr, a.indices, a.vals, xd, a.plan)
         torch.cuda.synchronize()
         err = float((got.cpu() - want).abs().max())
         worst = max(worst, err)
@@ -1053,27 +1107,33 @@ def phase_spmv_parity(KS, ref, PL, PS, PT, dims=SYNTH_DIMS, dev="cuda"):
                                x.abs())
         lib_ok = bool(((lib_out - want).abs() <= SPMV_LIB_RTOL * mag).all())
         lens = cpu.indptr.diff()
+        longest = int(lens.max())
         line = dict(phase="spmv_parity", operand=name, rows=nr, cols=nc,
-                    nnz=len(v), longest_row=int(lens.max()),
+                    nnz=len(v), longest_row=longest,
                     median_row=float(lens.double().median()),
                     empty_rows=int((lens == 0).sum()),
+                    plan=dict(long=a.plan.n_long, warp=a.plan.n_warp,
+                              quarter=a.plan.n_quarter, short=a.plan.n_short),
                     equal_to_cpu_plain=torch.equal(got.cpu(), want),
                     max_abs_err=err, library_within_rtol=lib_ok,
                     library_max_abs_diff=float((lib_out - want).abs().max()),
                     library_rtol=SPMV_LIB_RTOL)
-        if name != "ragged":
+        if name not in ("ragged", "segments"):
             bound, by = spmv_bound_ms(nr, nc, len(v))
+            chain = KS.order_chain(longest)
             row = dict(
                 ms=cuda_ms(lambda: KS.csr_spmv(a.indptr, a.indices, a.vals,
-                                               xd), 200),
+                                               xd, a.plan), 200),
                 device_ms=device_ms(lambda: KS.run(a.indptr, a.indices,
-                                                   a.vals, xd), 50,
+                                                   a.vals, xd, a.plan), 50,
                                     "csr_spmv"),
                 plain_ms=cuda_ms(lambda: ref.csr_spmv_ref(
                     a.indptr, a.indices, a.vals, xd), 50),
                 library_ms=cuda_ms(lambda: lib @ xd, 200),
-                bound_ms=bound, bound_by=by)
-            row["bound_share"] = bound / row["device_ms"]
+                bound_ms=bound, bound_by=by, order_chain_adds=chain,
+                order_bound_ms=chain * dadd_s * 1e3)
+            row["bound_share"] = max(bound, row["order_bound_ms"]) \
+                / row["device_ms"]
             out[name] = row
             line.update(row)
         emit(**line)
@@ -1086,15 +1146,18 @@ def phase_spmv_parity(KS, ref, PL, PS, PT, dims=SYNTH_DIMS, dev="cuda"):
 
 def phase_pdhg_determinism(KS, PL, PS, PT, dims=PDHG_DIMS,
                            iters=PDHG_ITERS, dev="cuda"):
-    """solve_pdhg on the synthesis LP at ``dims`` on the card and on the
-    CPU (one thread): x, y, obj, iters and status equal."""
+    """solve_pdhg on the synthesis LP at ``dims`` on the card (the chunk
+    as a CUDA graph) and on the CPU (one thread, eager): x, y, obj, iters
+    and status equal; lambda, x and y equal to PR 16's bits, rel_gap
+    within PR16_REL_GAP_RTOL of PR 16's."""
     lp = PS.build_synthesis_lp(PT.Pod(dims))
     kw = dict(max_iters=iters, tol=2e-4)
-    launches0 = KS.launches
+    launches0, replays0 = KS.launches, PL.graph_replays
     t0 = time.perf_counter()
     got = PL.solve_pdhg(lp.c, lp.A, lp.b, lp.lo, lp.hi, device=dev, **kw)
     cuda_s = time.perf_counter() - t0
     launches = KS.launches - launches0
+    replays = PL.graph_replays - replays0
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     t0 = time.perf_counter()
@@ -1103,15 +1166,77 @@ def phase_pdhg_determinism(KS, PL, PS, PT, dims=PDHG_DIMS,
     torch.set_num_threads(threads)
     same = {k: bool(np.array_equal(getattr(got, k), getattr(want, k)))
             for k in ("x", "y", "obj", "iters", "status")}
+    pr16 = dict(lp_lambda=-got.obj == PR16_PDHG["lp_lambda"],
+                x=sha256(got.x.tobytes()).hexdigest() == PR16_PDHG["x"],
+                y=sha256(got.y.tobytes()).hexdigest() == PR16_PDHG["y"],
+                rel_gap=abs(got.rel_gap - PR16_PDHG["rel_gap"])
+                <= PR16_REL_GAP_RTOL * PR16_PDHG["rel_gap"])
     emit(phase="pdhg_determinism", dims=list(dims), lp_shape=list(lp.A.shape),
          nnz=len(lp.A.vals), iters=got.iters, status=got.status,
          lp_lambda=-got.obj, rel_gap=got.rel_gap,
          primal_infeas=got.primal_infeas, cuda_s=cuda_s, cpu_s=cpu_s,
          iters_per_s=got.iters / cuda_s, csr_spmv_launches=launches,
-         equal=same)
+         graph_replays=replays, equal=same, pr16=PR16_PDHG,
+         equal_to_pr16=pr16)
     check(all(same.values()), f"solve_pdhg CUDA and CPU differ: {same}")
+    check(all(pr16.values()), f"solve_pdhg at 4^3 moved from PR 16: {pr16}")
     check(launches == 2 * got.iters or dev == "cpu",
           f"{launches} csr_spmv launches for {got.iters} iterations")
+    check(replays == got.iters // 250 - 1 or dev == "cpu",
+          f"{replays} graph replays for {got.iters} iterations")
+
+
+def phase_pdhg_chunk(KS, PL, solve, inner=250, dev="cuda"):
+    """One PDHG chunk of ``inner`` iterations on a recorded round's LP (the
+    first round of the 4x8x8 synthesis, where A^T's column of lambda is
+    longer than csr_spmv.SEGMENT) from its cold start: the CUDA graph's
+    replay, and the eager first run that precedes its capture, equal the
+    functional chunk on the CPU (one thread) bit for bit."""
+    (c, A, b, lo, hi), _, _ = solve
+    c, b, lo, hi = (np.asarray(v, np.float64) for v in (c, b, lo, hi))
+    vals_s, dr, dc, tau, cs, bs, los, his = PL._scale(c, A, b, lo, hi)
+    x0 = np.clip(np.zeros(A.shape[1]), los, his)
+    y0 = np.zeros(A.shape[0])
+
+    def on(device):
+        ops = PL._operators(A, vals_s, device)
+        vecs = [torch.as_tensor(np.ascontiguousarray(v), device=device)
+                for v in (cs, bs, los, his, x0, y0)]
+        return ops, vecs
+
+    (Ad, ATd), (cj, bj, loj, hij, xj, yj) = on(dev)
+    chunk = PL._Chunk(Ad, ATd, cj, bj, loj, hij, tau, tau, inner)
+    launches0 = KS.launches
+    t0 = time.perf_counter()
+    eager = [t.cpu() for t in chunk.run(xj, yj)]
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphed = [t.cpu() for t in chunk.run(xj, yj)]
+    replay_s = time.perf_counter() - t0
+    launches = KS.launches - launches0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    (Ac, ATc), (cc, bc, loc, hic, xc, yc) = on("cpu")
+    t0 = time.perf_counter()
+    want = PL._pdhg_chunk(Ac, ATc, cc, bc, loc, hic, xc, yc, tau, tau, inner)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    names = ("x", "y", "x_avg", "y_avg")
+    same = {k: bool(torch.equal(g, w)) for k, g, w in
+            zip(names, graphed, want)}
+    same_eager = {k: bool(torch.equal(g, w)) for k, g, w in
+                  zip(names, eager, want)}
+    emit(phase="pdhg_chunk_4x8x8", lp_shape=list(A.shape), nnz=len(A.vals),
+         inner=inner, at_longest_row=int(ATd.indptr.diff().max()),
+         at_long_rows=ATd.plan.n_long, spmv_nodes=chunk.spmv_launches,
+         csr_spmv_launches=launches, eager_and_capture_s=eager_s,
+         replay_s=replay_s, replay_iters_per_s=inner / replay_s,
+         cpu_s=cpu_s, equal_graphed=same, equal_eager=same_eager)
+    check(all(same.values()) and all(same_eager.values()),
+          f"PDHG chunk: CUDA graph {same}, eager {same_eager} against CPU")
+    check(ATd.plan.n_long > 0, "the chunk's A^T has no row over SEGMENT")
+    check(chunk.spmv_launches == 2 * inner and launches == 4 * inner,
+          f"PDHG chunk: {chunk.spmv_launches} nodes, {launches} launches")
 
 
 def phase_synthesis(PS, MC, dims=SYNTH_DIMS, dev="cuda", **synth_kw):
@@ -1135,23 +1260,29 @@ def phase_synthesis(PS, MC, dims=SYNTH_DIMS, dev="cuda", **synth_kw):
         PS.solve_pdhg = solve_pdhg
     log = res.stats["solves"]
     iters = sum(s["iters"] for s in log)
+    pdhg_s = sum(s["s"] for s in log)
     t0 = time.perf_counter()
     ee = PS.evaluate_end_to_end(res.topology, device=dev)
     e2e_s = time.perf_counter() - t0
     n = res.topology.n
+    # the order of A^T's column of lambda changed on purpose: a different
+    # third round or fabric is a finding, not a failure
     emit(phase="synthesis_4x8x8", dims=list(dims), n=n, synth_s=synth_s,
          build_s=res.stats["build_s"], n_var=res.stats["n_var"],
          n_rows=res.stats["n_rows"], nnz=res.stats["nnz"],
          interval=res.stats["interval"], rounds=len(res.lambdas),
-         pdhg_iters=iters, pdhg_s=sum(s["s"] for s in log),
-         iters_per_s=iters / max(sum(s["s"] for s in log), 1e-9),
-         lambdas=res.lambdas,
+         pdhg_iters=iters, pdhg_s=pdhg_s,
+         iters_per_s=iters / max(pdhg_s, 1e-9),
+         lambdas=res.lambdas, lambdas_pr16=PR16_LAMBDAS,
+         lambda_rel_diff_pr16=[abs(a - b) / abs(b) for a, b in
+                               zip(res.lambdas, PR16_LAMBDAS)],
          rel_gap=[r.rel_gap for _, _, r in solves],
          primal_infeas=[r.primal_infeas for _, _, r in solves],
          statuses=[s["status"] for s in log],
          basu_bound=MC.mcf_upper_bound_basu(n), n_orbits=res.n_orbits,
          n_fixed=res.n_fixed, n_completed=res.n_completed,
-         status=res.status, end_to_end=ee, end_to_end_s=e2e_s)
+         status=res.status, l_max=ee["l_max"], avg_hops=ee["avg_hops"],
+         end_to_end=ee, end_to_end_s=e2e_s)
     check(res.status == "ok" and all(s["solver"] == "pdhg" for s in log),
           f"synthesis: status {res.status}, solvers {log}")
     deg = np.bincount(res.topology.edges().ravel(), minlength=n)
@@ -1386,13 +1517,15 @@ def main() -> int:
 
     # ---- synthesis and workload co-design: the kernel first, then the path -
     t = [time.perf_counter()]
-    spmv_rows, spmv_err = phase_spmv_parity(KS, ref, PL, PS, PT)
+    dadd_cycles, dadd_s = phase_spmv_probe(KS, sm_clock_hz)
+    spmv_rows, spmv_err = phase_spmv_parity(KS, ref, PL, PS, PT, dadd_s)
     phase_pdhg_determinism(KS, PL, PS, PT)
     t.append(time.perf_counter())
     KS.launches = mp.launches = mp.hop_launches = 0
-    _, ee, solves = phase_synthesis(PS, MC)
+    synth, ee, solves = phase_synthesis(PS, MC)
     hops_synth = mp.hop_launches
     spmv_synth = KS.launches
+    synth_iters = sum(s["iters"] for s in synth.stats["solves"])
     t.append(time.perf_counter())
     phase_workload(PW, convert, PipelineConfig)
     t.append(time.perf_counter())
@@ -1405,15 +1538,19 @@ def main() -> int:
          tons_sym_256_stored=dict(l_max=rp_tons.l_max,
                                   avg_hops=rp_tons.avg_hops),
          synthesized_4x8x8=dict(l_max=ee["l_max"], avg_hops=ee["avg_hops"]))
-    check(spmv_synth > 0, "synthesis never launched the csr_spmv kernel")
+    check(spmv_synth == 2 * synth_iters > 0,
+          f"synthesis: {spmv_synth} csr_spmv launches for {synth_iters} "
+          "PDHG iterations")
     check(hops_synth > 0 and synth_hops > hops_synth,
           "synthesis or workload evaluation never launched the hop path")
     phase_synthesis_repeat(PL, solves)
+    phase_pdhg_chunk(KS, PL, solves[0])
     phase_workload_determinism(PW, PNS, convert, PipelineConfig, route_pod)
     t.append(time.perf_counter())
     emit(phase="synthesis_path_seconds", phase_s=dict(zip(
-        ("spmv_parity+pdhg_determinism", "synthesis_4x8x8", "workload_128",
-         "repeat+determinism"), np.diff(t).tolist())), seconds=t[-1] - t[0])
+        ("spmv_probe+parity+pdhg_determinism", "synthesis_4x8x8",
+         "workload_128", "repeat+chunk+determinism"), np.diff(t).tolist())),
+         seconds=t[-1] - t[0])
 
     # ---- the serving path: flash kernel first, then the main path ----------
     cfg = get_config(SERVE_ARCH).model
@@ -1465,11 +1602,13 @@ def main() -> int:
         "name": "csr_spmv_f64", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/csr_spmv.cu",
         "replaces": "src/repro/core/lp.py:94", "launches": spmv_launches,
+        "launches_synthesis": spmv_synth,
         "parity": "exact vs the plain version on the CPU",
         "max_abs_err": spmv_err, "shape": "A^T y of the 4x8x8 synthesis LP",
-        **{k: spmv_rows["AT y"][k] for k in (
+        **{k: spmv_rows["AT y 4x8x8"][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "library_ms", "order_bound_ms", "bound_share")},
+        "dadd_latency_cycles": dadd_cycles,
         "by_shape": spmv_rows}]}), flush=True)
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

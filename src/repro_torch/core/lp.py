@@ -10,8 +10,12 @@ float64 on ``device``: every iteration is two CSR sparse products
 (A·x and Aᵀ·y, :func:`repro_torch.kernels.ops.csr_spmv`: the
 hand-written kernel on CUDA, its plain version on the CPU), two clips
 and the running sums. The products sum each row in the COO's own order
-(a stable sort, duplicates kept), so CUDA and the CPU give the same
-iterates bit for bit, run after run.
+(a stable sort, duplicates kept): a row of up to ``csr_spmv.SEGMENT``
+entries left to right from 0.0, a longer one in ordered segments of
+``SEGMENT``. So CUDA and the CPU give the same iterates bit for bit, run
+after run. On CUDA the ``inner``-iteration chunk is captured once per
+solve as a CUDA graph (:class:`_Chunk`) and replayed at every restart;
+the CPU runs the same torch ops eagerly.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import csr_spmv as _spmv, ops
+
+graph_replays = 0     # CUDA graph replays of a PDHG chunk since the reset
 
 
 @dataclasses.dataclass
@@ -58,10 +64,12 @@ class LPResult:
 @dataclasses.dataclass
 class CSR:
     """A sparse operator as ``ops.csr_spmv`` takes it, on one device:
-    int64 row offsets, int32 column indices, float64 values."""
+    int64 row offsets, int32 column indices, float64 values, and the
+    kernel's plan of its rows (``csr_spmv.plan``)."""
     indptr: torch.Tensor
     indices: torch.Tensor
     vals: torch.Tensor
+    plan: _spmv.Plan
 
     @staticmethod
     def from_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -76,10 +84,17 @@ class CSR:
                    torch.as_tensor(cols[order].astype(np.int32),
                                    device=device),
                    torch.as_tensor(np.asarray(vals, np.float64)[order],
-                                   device=device))
+                                   device=device),
+                   _spmv.plan(indptr, device))
+
+    def mv(self, v: torch.Tensor,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The product with ``v``, into ``out`` when given."""
+        return ops.csr_spmv(self.indptr, self.indices, self.vals, v,
+                            self.plan, out)
 
     def __matmul__(self, v: torch.Tensor) -> torch.Tensor:
-        return ops.csr_spmv(self.indptr, self.indices, self.vals, v)
+        return self.mv(v)
 
 
 def solve_highs(c, A: COOMatrix, b, lo, hi,
@@ -156,6 +171,95 @@ def _pdhg_chunk(A: CSR, AT: CSR, c, b, lo, hi, x, y, tau: float,
     return x, y, xs / inner, ys / inner
 
 
+class _Chunk:
+    """:func:`_pdhg_chunk` on static buffers, as a CUDA graph captures it:
+    the same torch ops in the same order, each written with ``out=`` or
+    in place into preallocated tensors, so that a replay allocates
+    nothing. ``x`` and ``y`` are ping-pong pairs: iteration ``i`` reads
+    ``x[i % 2]`` and writes ``x[1 - i % 2]``.
+
+    :meth:`run` copies the start iterate into ``x[0]``, ``y[0]`` and runs
+    the chunk: on the CPU eagerly (:meth:`body`); on CUDA eagerly the
+    first time, on a side stream, which warms up every kernel, then
+    captured once and replayed ever after. A capture or replay that
+    fails raises."""
+
+    def __init__(self, A: CSR, AT: CSR, c, b, lo, hi, tau: float,
+                 sigma: float, inner: int):
+        self.A, self.AT, self.c, self.b, self.lo, self.hi = \
+            A, AT, c, b, lo, hi
+        self.tau, self.sigma, self.inner = tau, sigma, inner
+        n, m = c.numel(), b.numel()
+
+        def buf(k):
+            return torch.empty(k, dtype=torch.float64, device=c.device)
+        self.x, self.y = (buf(n), buf(n)), (buf(m), buf(m))
+        self.xs, self.ys, self.t_n, self.t_m = buf(n), buf(m), buf(n), buf(m)
+        # the averages divide by a tensor on the device: CUDA multiplies
+        # by the reciprocal of a host scalar, which rounds otherwise than
+        # the CPU's division
+        self.divisor = torch.tensor(float(inner), dtype=torch.float64,
+                                    device=c.device)
+        self.graph = None
+        self.spmv_launches = 0    # csr_spmv launches one replay runs
+
+    def step(self, i: int) -> None:
+        """Iteration ``i`` of the chunk, op for op :func:`_pdhg_chunk`'s."""
+        x, y = self.x[i % 2], self.y[i % 2]
+        x_new, y_new = self.x[1 - i % 2], self.y[1 - i % 2]
+        g, r = self.t_n, self.t_m
+        self.AT.mv(y, out=g)                        # g = c + AT @ y
+        torch.add(self.c, g, out=g)
+        torch.mul(g, self.tau, out=g)               # x - tau * g
+        torch.sub(x, g, out=g)
+        torch.clamp(g, self.lo, self.hi, out=x_new)
+        torch.mul(x_new, 2.0, out=g)                # r = A @ (2x' - x) - b
+        torch.sub(g, x, out=g)
+        self.A.mv(g, out=r)
+        torch.sub(r, self.b, out=r)
+        torch.mul(r, self.sigma, out=r)             # y + sigma * r
+        torch.add(y, r, out=r)
+        torch.clamp_min(r, 0.0, out=y_new)
+        self.xs.add_(x_new)
+        self.ys.add_(y_new)
+
+    def body(self) -> None:
+        """The whole chunk from ``x[0]``, ``y[0]``, with zeroed sums."""
+        self.xs.zero_()
+        self.ys.zero_()
+        for i in range(self.inner):
+            self.step(i)
+
+    def run(self, x: torch.Tensor, y: torch.Tensor):
+        """The chunk from ``(x, y)``: the last iterate (static buffers,
+        valid until the next run) and the averages."""
+        global graph_replays
+        self.x[0].copy_(x)
+        self.y[0].copy_(y)
+        if self.c.device.type != "cuda":
+            self.body()
+        elif self.graph is not None:
+            self.graph.replay()
+            _spmv.count_replay(self.spmv_launches)
+            graph_replays += 1
+        else:
+            main = torch.cuda.current_stream(self.c.device)
+            side = torch.cuda.Stream(self.c.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.body()
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            captured = _spmv.captured
+            with torch.cuda.graph(graph):
+                self.body()
+            self.spmv_launches = _spmv.captured - captured
+            self.graph = graph
+        last = self.inner % 2
+        return (self.x[last], self.y[last], self.xs / self.divisor,
+                self.ys / self.divisor)
+
+
 def _residuals(A_sp, c, b, lo, hi, x, y):
     ax = A_sp @ x
     pinf = np.linalg.norm(np.maximum(ax - b, 0.0)) / (1 + np.linalg.norm(b))
@@ -166,52 +270,65 @@ def _residuals(A_sp, c, b, lo, hi, x, y):
     return pobj, dobj, gap, pinf
 
 
+def _scale(c, A: COOMatrix, b, lo, hi):
+    """The Ruiz-scaled problem on the host: scaled values, the row and
+    column scales, the step size and the scaled c, b, lo and hi."""
+    vals_s, dr, dc = _ruiz_scale(A)
+    # scaled problem: x = Dc xs, rows scaled by Dr:
+    return (vals_s, dr, dc, _step_size(A, vals_s), c * dc, b * dr, lo / dc,
+            hi / dc)
+
+
+def _operators(A: COOMatrix, vals_s: np.ndarray, device):
+    """The scaled A and Aᵀ as CSRs on ``device``."""
+    rows = np.asarray(A.rows, np.int64)
+    cols = np.asarray(A.cols, np.int64)
+    m, n = A.shape
+    return (CSR.from_coo(rows, cols, vals_s, m, device),
+            CSR.from_coo(cols, rows, vals_s, n, device))
+
+
 def solve_pdhg(c, A: COOMatrix, b, lo, hi, max_iters: int = 40000,
                tol: float = 1e-5, inner: int = 250,
                x0: Optional[np.ndarray] = None,
                y0: Optional[np.ndarray] = None,
                verbose: bool = False, device=None) -> LPResult:
     """The reference's PDHG with restarts; the chunk loop runs on
-    ``device`` (``None`` = CUDA, which raises when no GPU is present)."""
+    ``device`` (``None`` = CUDA, which raises when no GPU is present):
+    a CUDA graph of the chunk there, the eager loop on the CPU."""
     device = resolve_device(device)
-    m, n = A.shape
     c = np.asarray(c, np.float64)
     b = np.asarray(b, np.float64)
     lo = np.asarray(lo, np.float64)
     hi = np.asarray(hi, np.float64)
 
-    vals_s, dr, dc = _ruiz_scale(A)
-    # scaled problem: x = Dc xs, rows scaled by Dr:
-    cs = c * dc
-    bs = b * dr
-    los = lo / dc
-    his = hi / dc
-
+    vals_s, dr, dc, tau, cs, bs, los, his = _scale(c, A, b, lo, hi)
+    sigma = tau
     A_sp = A.to_scipy()
-    tau = sigma = _step_size(A, vals_s)
-
-    rows = np.asarray(A.rows, np.int64)
-    cols = np.asarray(A.cols, np.int64)
-    Ad = CSR.from_coo(rows, cols, vals_s, m, device)
-    ATd = CSR.from_coo(cols, rows, vals_s, n, device)
+    Ad, ATd = _operators(A, vals_s, device)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.float64),
                                device=device)
 
     cj, bj, loj, hij = dev(cs), dev(bs), dev(los), dev(his)
+    if device.type == "cuda":
+        chunk = _Chunk(Ad, ATd, cj, bj, loj, hij, tau, sigma, inner).run
+    else:
+        def chunk(xj, yj):
+            return _pdhg_chunk(Ad, ATd, cj, bj, loj, hij, xj, yj, tau,
+                               sigma, inner)
 
     x = np.clip(x0 / dc, los, his) if x0 is not None \
-        else np.clip(np.zeros(n), los, his)
-    y = (y0 / dr) if y0 is not None else np.zeros(m)
+        else np.clip(np.zeros(A.shape[1]), los, his)
+    y = (y0 / dr) if y0 is not None else np.zeros(A.shape[0])
     xj = dev(x)
     yj = dev(np.maximum(y, 0.0))
 
     best = None
     it = 0
     while it < max_iters:
-        xj, yj, xavg, yavg = _pdhg_chunk(Ad, ATd, cj, bj, loj, hij, xj, yj,
-                                         tau, sigma, inner)
+        xj, yj, xavg, yavg = chunk(xj, yj)
         it += inner
         # evaluate averaged and current iterates in the original space
         x_avg_u = xavg.cpu().numpy() * dc

@@ -36,13 +36,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
-             vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out[r] = sum_e vals[e] * x[indices[e]] over CSR row r in float64,
-    each row summed in CSR order (bit-identical on both paths)."""
+             vals: torch.Tensor, x: torch.Tensor,
+             plan: Optional[_spmv.Plan] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[r] = sum_e vals[e] * x[indices[e]] over CSR row r in float64
+    (bit-identical on both paths): each row of up to ``SEGMENT`` entries
+    left to right from 0.0, a longer one in ordered segments of
+    ``SEGMENT`` (``ref.csr_spmv_ref``). ``plan`` (``csr_spmv.plan``) is
+    the kernel's row classes; the CPU path ignores it. Writes into
+    ``out`` when given."""
     if x.device.type == "cuda":
-        return _spmv.csr_spmv(indptr, indices, vals, x)
+        return _spmv.csr_spmv(indptr, indices, vals, x, plan, out)
     if x.device.type == "cpu":
-        return ref.csr_spmv_ref(indptr, indices, vals, x)
+        got = ref.csr_spmv_ref(indptr, indices, vals, x)
+        return got if out is None else out.copy_(got)
     raise ValueError(f"csr_spmv has no path for device {x.device}")
 
 

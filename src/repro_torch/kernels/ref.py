@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.csr_spmv import SEGMENT
+
 # elements of the (M, kc, N) broadcast one chunk of minplus_ref may hold
 _CHUNK_ELEMS = 1 << 27
 NEG_INF = -1e30       # the flash kernels' masked score
@@ -77,16 +79,34 @@ def csr_spmv_ref(indptr: torch.Tensor, indices: torch.Tensor,
                  vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """out[r] = sum_e vals[e] * x[indices[e]] over row r's CSR entries.
 
-    The products, then ``index_add_`` over the row ids on the CPU, which
-    adds them one at a time in index order into a zero vector: each row
-    is summed left to right from 0.0, as ``csrc/csr_spmv.cu`` sums it
-    (and as numpy's ``np.add.at`` sums the COO in order).
+    The order of ``csrc/csr_spmv.cu``: a row of at most ``SEGMENT``
+    entries is summed left to right from 0.0; a longer row in consecutive
+    segments of ``SEGMENT`` entries (the last one shorter), each summed
+    left to right from 0.0, then the segment sums left to right from 0.0.
+    On the CPU ``index_add_`` adds one at a time in index order into a
+    zero vector, so that is two passes: the products into one slot per
+    (row, segment), then the slots into their rows. When no row is longer
+    than ``SEGMENT`` the slots are the rows, and the second pass, which
+    would add each to 0.0, is skipped: a sum from 0.0 is never -0.0, so
+    ``0.0 + s == s`` bit for bit.
     """
     rows = indptr.numel() - 1
+    lens = indptr.diff()
+    prods = vals * x[indices.long()]
     row_of = torch.repeat_interleave(
-        torch.arange(rows, device=indptr.device), indptr.diff())
+        torch.arange(rows, device=indptr.device), lens)
     out = torch.zeros(rows, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, row_of, vals * x[indices.long()])
+    if rows == 0 or int(lens.max()) <= SEGMENT:
+        return out.index_add_(0, row_of, prods)
+    segs = (lens + SEGMENT - 1) // SEGMENT
+    first = torch.cumsum(segs, 0) - segs            # each row's first slot
+    pos = torch.arange(prods.numel(), device=indptr.device) - indptr[row_of]
+    slot_of = first[row_of] + pos // SEGMENT
+    slots = torch.zeros(int(segs.sum()), dtype=vals.dtype,
+                        device=vals.device).index_add_(0, slot_of, prods)
+    row_of_slot = torch.repeat_interleave(
+        torch.arange(rows, device=indptr.device), segs)
+    return out.index_add_(0, row_of_slot, slots)
 
 
 def apsp_ref(adj: torch.Tensor, max_iters: int | None = None
