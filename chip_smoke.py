@@ -16,8 +16,12 @@ synthesis of 4x8x8 with PDHG rounds on the card and its routed fabric,
 one graphed chunk of its first round against the CPU,
 ``evaluate_workload`` of the two stored workload fabrics) and serving (qwen2.5-3b at its published widths, 8
 ragged requests through the port's ``Server``, then one 32768-token
-prefill) -- checks that the simulator's, the LP solver's and the
-model's CUDA and CPU runs agree, and prints one JSON line per result.
+prefill; then the MoE, SSM, hybrid and encoder-decoder families --
+deepseek-moe-16b, mamba2-2.7b, jamba-v0.1-52b cut to 16 of its 32
+layers, seamless-m4t-medium -- each at its published widths, 6 requests
+served twice with equal token streams, and its CPU-vs-CUDA case) --
+checks that the simulator's, the LP solver's and the model's CUDA and
+CPU runs agree, and prints one JSON line per result.
 
     python3 chip_smoke.py
 
@@ -28,8 +32,10 @@ of JAX or of the JAX package ``repro``. The last line of the output is
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -45,7 +51,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.kernels.timing import cuda_ms, device_ms  # noqa: E402
+from repro_torch.kernels.timing import (  # noqa: E402
+    bound_share, cuda_ms, device_ms)
 
 # Published H100 SXM memory rate (HBM3).
 PEAK_BYTES = 3.35e12
@@ -60,6 +67,17 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_TIME_S = (142, 891, 2048, 4096, 8192, 32768)
 # the long prefill: qwen2.5-3b's prefill_32k shape
 LONG_S = 32768
+# the other families' serving paths (ROADMAP items 6-9), in this order, at
+# their published widths; jamba cut to 16 of its 32 layers (2 of its 4
+# period-8 super-blocks: 52 GB of bf16 weights of its 103 GB)
+FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
+                "seamless-m4t-medium")
+FAMILY_LAYERS = {"jamba-v0.1-52b": 16}
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 6, 16
+# the port functions whose device time the family profiles split out
+FAMILY_TAGS = {"moe": ("moe_route", "moe_dispatch", "moe_experts",
+                       "moe_combine"),
+               "ssm": ("_causal_conv", "ssd_chunked", "ssd_step")}
 # the port's CPU and CUDA runs of one model: the reference's own tolerance
 # between two bf16 lowerings of one model (test_models.py, prefill/decode
 # against the full forward)
@@ -339,15 +357,15 @@ def phase_kernels(mp, ops, ref, PT, tons, ops_per_s, dpx_per_s):
         card = None
         if n >= 4096:
             with SmiSampler() as smi_log:
-                row["device_ms"] = device_ms(launch, reps, "minplus_kernel")
+                row.update(device_ms(launch, reps, "minplus_kernel"))
             card = smi_log.summary()
         else:
-            row["device_ms"] = device_ms(launch, reps, "minplus_kernel")
+            row.update(device_ms(launch, reps, "minplus_kernel"))
         row.update(plain_ms=cuda_ms(plain, plain_reps), bound_ms=bound,
                    bound_by=by)
         rows[path][n] = row
         emit(phase="minplus_time", path=path, shape=[n, n, n],
-             bound_share=bound / row["device_ms"],
+             bound_share=bound_share(bound, row),
              plan=mp.plan(path, n, n, n), card=card, **row)
 
     for n, h in ((512, pt8_h), (256, t256_h)):
@@ -456,11 +474,13 @@ def row_rel_err(got, want) -> float:
                   / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def phase_flash(fa, ref, prompt_lens, flops_per_s, dev="cuda"):
+def phase_flash(fa, ref, prompt_lens, family_lens, flops_per_s,
+                dev="cuda"):
     """The flash kernel against its plain version at test_kernels.py's
     sweep, the non-causal and Sq < Skv cases (f32 on the CUDA-core
     kernel, bf16 on the tensor-core one), the serving shapes (the serve
-    phase's prompt lengths among them) at hd 128 and 64, and S = 32768
+    phase's prompt lengths among them) at hd 128 and 64, the other
+    families' head geometries at their prompt lengths, and S = 32768
     with one head and at the serving heads in the model's layout; then
     timed at the serving shapes from S = 142 to 32768 beside PyTorch's
     SDPA, and the plain version where it fits. Each case passes
@@ -478,6 +498,15 @@ def phase_flash(fa, ref, prompt_lens, flops_per_s, dev="cuda"):
     cases += [((1, 16, 2, S, S, 128), bf16, True, True)
               for S in sorted({100, 512, 1000, 2048, *prompt_lens})]
     cases += [((1, 16, 2, S, S, 64), bf16, True, True) for S in (142, 891)]
+    # the other families' prefill geometries at their prompt lengths:
+    # deepseek (16/16, hd 128), jamba (32/8, hd 128) and seamless (16/16,
+    # hd 64: the encoder and cross attention non-causal, the decoder causal)
+    cases += [((1, Hq, Hkv, S, S, hd), bf16, causal, True)
+              for S in family_lens
+              for Hq, Hkv, hd, causal in ((16, 16, 128, True),
+                                          (32, 8, 128, True),
+                                          (16, 16, 64, True),
+                                          (16, 16, 64, False))]
     cases += [((1, 1, 1, LONG_S, LONG_S, 128), bf16, True, False),
               ((1, 16, 2, LONG_S, LONG_S, 128), bf16, True, True)]
     max_err = {f32: 0.0, bf16: 0.0}
@@ -697,6 +726,231 @@ def phase_serve_cpu_vs_gpu(PM, cfg, dev="cuda"):
          prompt_len=S, decode_steps=3, max_abs_err=errs,
          argmax_agree=agree, rtol=MODEL_RTOL, atol=MODEL_ATOL,
          logit_abs_max=float(outs[0][0].abs().max()))
+
+
+def family_config(get_config, arch):
+    """An arch's published config, cut in depth where FAMILY_LAYERS says."""
+    cfg = get_config(arch).model
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
+def attention_layers(cfg) -> int:
+    """Flash launches of one prefill: each attention layer; for an
+    encoder-decoder the encoder's layers and the decoder's self and
+    cross attention."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def prefill_batch(cfg, prompt, dev, frames=None):
+    """``prefill_fn``'s batch for one prompt; an encoder-decoder takes
+    ``frames`` (zeros of the prompt's length, as the Server feeds)."""
+    tokens = torch.as_tensor(prompt, device=dev)[None, :]
+    if cfg.family != "encdec":
+        return {"tokens": tokens}
+    if frames is None:
+        frames = torch.zeros((1, tokens.shape[1], cfg.d_model),
+                             dtype=torch.bfloat16, device=dev)
+    return {"tokens": tokens, "frames": frames}
+
+
+def phase_serve_family(fa, PM, L, Request, Server, cfg, dev="cuda"):
+    """Another family's serving path at its published widths: random
+    weights from seed 0 on the card, the first FAMILY_REQUESTS of the
+    serve prompts (4 slots, so two are refilled), FAMILY_MAX_NEW tokens
+    each, through ``Server.run`` twice, each on a fresh Server: both serve
+    every request with the same token streams (the MoE combine sums in a
+    fixed order), and the first launches flash once per attention layer
+    and prefill. Then one prefill of the longest prompt and one decode
+    step under the profiler, with the device time of the MoE's or the
+    SSD's functions. Returns the first run's flash launches."""
+    gc.collect()             # a Server and its wrapped methods form a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PM.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    prompts = serve_prompts(cfg.vocab)[:FAMILY_REQUESTS]
+    want = attention_layers(cfg) * FAMILY_REQUESTS
+    runs = []
+    for _ in range(2):
+        server = Server(cfg, params, n_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, device=dev)
+        reqs = [Request(i, p, FAMILY_MAX_NEW) for i, p in enumerate(prompts)]
+        prefill_s, decode_ms, finite = [], [], []
+        prefill_one, decode = server._prefill_one, server._decode
+
+        def timed_prefill(slot, req):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill_one(slot, req)
+            prefill_s.append(time.perf_counter() - t)
+
+        def timed_decode(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = decode(*a)
+            finite.append(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+            return logits, caches
+
+        server._prefill_one, server._decode = timed_prefill, timed_decode
+        fa.launches = 0                              # this path, this run
+        t0 = time.perf_counter()
+        out = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(v) for v in out["results"].values())
+        runs.append(dict(
+            out=out, launches=fa.launches, wall_s=wall, tokens=tokens,
+            prefill_s=sum(prefill_s), prefill_s_each=prefill_s,
+            decode_ms_median=float(np.median(decode_ms)),
+            tok_per_s=tokens / wall,
+            finite=bool(torch.stack(finite).all())))
+    first, second = runs
+    out = first["out"]
+    same = first["out"]["results"] == second["out"]["results"]
+    emit(phase="serve_family", arch=cfg.name, family=cfg.family,
+         n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         dec_layers=cfg.dec_layers, d_model=cfg.d_model,
+         slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+         prompt_lens=[len(p) for p in prompts], max_new=FAMILY_MAX_NEW,
+         served=out["served"], decode_steps=out["decode_steps"],
+         **{k: first[k] for k in ("tokens", "wall_s", "prefill_s",
+                                  "prefill_s_each", "decode_ms_median",
+                                  "tok_per_s")},
+         second_run={k: second[k] for k in ("wall_s", "prefill_s",
+                                            "decode_ms_median",
+                                            "tok_per_s")},
+         flash_launches=first["launches"], flash_launches_want=want,
+         streams_equal_across_runs=same, init_s=init_s, n_params=n_params,
+         param_gb=param_gb,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         decode_logits_finite=first["finite"] and second["finite"])
+    for r in runs:
+        check(r["out"]["served"] == FAMILY_REQUESTS,
+              f"{cfg.name}: served {r['out']['served']} of "
+              f"{FAMILY_REQUESTS}")
+        check(all(len(v) == FAMILY_MAX_NEW + 1 and
+                  all(0 <= t < cfg.vocab for t in v)
+                  for v in r["out"]["results"].values()),
+              f"{cfg.name}: token streams malformed")
+        check(r["finite"], f"{cfg.name}: non-finite decode logits")
+    check(first["launches"] == want,
+          f"{cfg.name}: flash launches {first['launches']}, want {want}")
+    check(same, f"{cfg.name}: two runs of the same requests gave other "
+          "token streams")
+
+    # where the time goes: one prefill of the longest prompt and one
+    # decode step, with the device time of the MoE's or the SSD's parts
+    names = {"moe": FAMILY_TAGS["moe"], "ssm": FAMILY_TAGS["ssm"],
+             "hybrid": FAMILY_TAGS["moe"] + FAMILY_TAGS["ssm"]
+             }.get(cfg.family, ())
+    batch = prefill_batch(cfg, max(prompts, key=len), dev)
+    pos = int(server.pos.max())
+    with torch.inference_mode(), tagged(L, names):
+        pre = busy_share(lambda: PM.prefill_fn(cfg, params, batch,
+                                               cache_len=SERVE_MAX_LEN),
+                         by_kernel=True, tags=names)
+        dec = busy_share(lambda: decode(params, server.caches,
+                                        server.tokens, pos),
+                         by_kernel=True, tags=names)
+    shares = {}
+    for name, prof in (("prefill", pre), ("decode", dec)) if names else ():
+        ms, total = prof["tag_device_ms"], prof["device_ms"]
+        if total:                  # a trace may hold no kernel (timing.py)
+            shares[name] = {k: v / total for k, v in ms.items()}
+            shares[name]["total"] = sum(ms.values()) / total
+    emit(phase="serve_family_profile", arch=cfg.name,
+         prefill_tokens=int(batch["tokens"].shape[1]), prefill=pre,
+         decode=dec, decode_kernels_per_step=dec["kernels"],
+         decode_ms_per_step=dec["wall_s"] * 1e3,
+         device_share_by_function=shares)
+    return first["launches"]
+
+
+def family_check_config(get_config, cfg):
+    """The CPU-vs-CUDA check's cut of a family: depth 2 at full width
+    (an MoE model's dense first layer and an MoE layer; two Mamba
+    layers), one encoder and one decoder layer at full width, and for a
+    hybrid one super-block at ``smoke_model()`` widths (a full-width one
+    is 26.5 GB in host memory)."""
+    if cfg.family == "hybrid":
+        return get_config(cfg.name).smoke_model()
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, enc_layers=1, dec_layers=1,
+                                   n_layers=2)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
+    """One set of weights (:func:`family_check_config`): prefill of a
+    100-token prompt (an encoder-decoder's with 100 normal frames) and 3
+    teacher-forced decode steps on the CPU (plain attention) and on CUDA
+    (the kernel); logits agree within the stated bf16 tolerance. Where
+    the two devices route a token to other experts, the line and the
+    check say so."""
+    cfg2 = family_check_config(get_config, cfg)
+    gpu = PM.init_params(cfg2, seed=0, device=dev)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (1, 104)))
+    frames = torch.as_tensor(rng.standard_normal(
+        (1, 100, cfg2.d_model)).astype(np.float32)).to(torch.bfloat16)
+    S = 100
+    routes = {}
+    orig_route = L.moe_route
+    outs = []
+    with torch.inference_mode():
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            log = routes[d] = []
+
+            def rec(*a, **kw):
+                r = orig_route(*a, **kw)
+                log.append(r.eidx.sort(dim=1).values.cpu())
+                return r
+            L.moe_route = rec
+            try:
+                t = toks.to(d)
+                logits, caches = PM.prefill_fn(
+                    cfg2, model, prefill_batch(cfg2, t[0, :S], d,
+                                               frames.to(d)),
+                    cache_len=104)
+                steps = [logits]
+                for i in range(3):
+                    logits, caches = PM.decode_fn(
+                        cfg2, model, caches, t[:, S + i:S + i + 1], S + i)
+                    steps.append(logits)
+            finally:
+                L.moe_route = orig_route
+            outs.append([x.float().cpu() for x in steps])
+    other = [{"call": i, "tokens": torch.nonzero((a != b).any(1)).flatten()
+              .tolist()} for i, (a, b) in enumerate(zip(routes["cpu"],
+                                                        routes[dev]))
+             if not torch.equal(a, b)]
+    errs = [float((c - g).abs().max()) for c, g in zip(*outs)]
+    agree = [int(c.argmax()) == int(g.argmax()) for c, g in zip(*outs)]
+    emit(phase="serve_family_cpu_vs_gpu", arch=cfg.name,
+         cut=dict(n_layers=cfg2.n_layers, enc_layers=cfg2.enc_layers,
+                  dec_layers=cfg2.dec_layers, d_model=cfg2.d_model),
+         prompt_len=S, decode_steps=3, max_abs_err=errs,
+         argmax_agree=agree, moe_calls=len(routes["cpu"]),
+         expert_choice_differs=other, rtol=MODEL_RTOL, atol=MODEL_ATOL,
+         logit_abs_max=float(outs[0][0].abs().max()))
+    for c, g, err in zip(*outs, errs):
+        check(torch.allclose(g, c, rtol=MODEL_RTOL, atol=MODEL_ATOL),
+              f"{cfg.name}: CPU and CUDA logits differ by {err}; experts "
+              f"chosen otherwise on the two devices: {other or 'none'}")
 
 
 def drive(name, topo, PNS, route_pod):
@@ -1124,16 +1378,15 @@ def phase_spmv_parity(KS, ref, PL, PS, PT, dadd_s, dims=SPMV_DIMS,
             row = dict(
                 ms=cuda_ms(lambda: KS.csr_spmv(a.indptr, a.indices, a.vals,
                                                xd, a.plan), 200),
-                device_ms=device_ms(lambda: KS.run(a.indptr, a.indices,
-                                                   a.vals, xd, a.plan), 50,
-                                    "csr_spmv"),
+                **device_ms(lambda: KS.run(a.indptr, a.indices, a.vals,
+                                           xd, a.plan), 50, "csr_spmv"),
                 plain_ms=cuda_ms(lambda: ref.csr_spmv_ref(
                     a.indptr, a.indices, a.vals, xd), 50),
                 library_ms=cuda_ms(lambda: lib @ xd, 200),
                 bound_ms=bound, bound_by=by, order_chain_adds=chain,
                 order_bound_ms=chain * dadd_s * 1e3)
-            row["bound_share"] = max(bound, row["order_bound_ms"]) \
-                / row["device_ms"]
+            row["bound_share"] = bound_share(
+                max(bound, row["order_bound_ms"]), row)
             out[name] = row
             line.update(row)
         emit(**line)
@@ -1365,12 +1618,15 @@ def phase_workload_determinism(PW, PNS, convert, PipelineConfig, route_pod,
     check(_conserving(got), "workload replay: conservation fails")
 
 
-def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
+def busy_share(fn, reps: int = 1, by_kernel: bool = False,
+               tags=()) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
     the union of their CUDA kernels' time intervals in a profiler trace,
     over the calls' host wall time. With ``by_kernel``, also the device
     time of each kernel name from ``key_averages()`` (the 12 longest, in
-    ms) and the flash kernel's share of all device time."""
+    ms) and the flash kernel's share of all device time. With ``tags``,
+    the device time (ms) of the kernels launched inside each profiler
+    range of those names (see :func:`tagged`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()                                                     # warm-up
@@ -1384,9 +1640,12 @@ def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
         wall = time.perf_counter() - t0
     # the raw trace, not prof.events(): building the event tree takes
     # tens of seconds for a sweep's hundreds of thousands of events
+    # a profiler range also shows on the device timeline, under its name,
+    # from its first kernel's start to its last's end: not a kernel
     spans = sorted((e.start_ns(), e.end_ns())
                    for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+                   if e.device_type() == DeviceType.CUDA
+                   and e.name() not in tags)
     busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -1397,14 +1656,42 @@ def busy_share(fn, reps: int = 1, by_kernel: bool = False) -> dict:
     if by_kernel:
         times = {e.key: e.self_device_time_total / 1e3
                  for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
+                 if e.device_type == DeviceType.CUDA and e.key not in tags}
         total = sum(times.values())
         flash = sum(t for k, t in times.items() if "flash_fwd" in k)
         top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
         out.update(device_ms=total, flash_ms=flash,
                    flash_share=flash / total if total else None,
                    top_kernels_ms=[[k[:120], t] for k, t in top])
+    if tags:
+        ms = dict.fromkeys(tags, 0.0)
+        for e in prof.events():
+            if e.name in ms and e.device_type == DeviceType.CPU:
+                ms[e.name] += e.device_time_total / 1e3
+        out["tag_device_ms"] = ms
     return out
+
+
+@contextlib.contextmanager
+def tagged(mod, names):
+    """While the block runs, each function ``names`` of module ``mod``
+    runs inside a profiler range of its name (the port calls them through
+    the module, so the ranges catch every call)."""
+    from torch.profiler import record_function
+    saved = {n: getattr(mod, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+    for n, fn in saved.items():
+        setattr(mod, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
 
 
 def main() -> int:
@@ -1421,7 +1708,7 @@ def main() -> int:
     from repro_torch.kernels import csr_spmv as KS, \
         flash_attention as fa, minplus as mp, nvcc, ops, ref
     from repro_torch.launch.serve import Request, Server
-    from repro_torch.models import model as PM
+    from repro_torch.models import layers as L, model as PM
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -1435,7 +1722,10 @@ def main() -> int:
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
          device=name, capability=list(torch.cuda.get_device_capability(0)),
          nvidia_smi=card, max_sm_clock_mhz=sm_clock_hz / 1e6, sms=sms,
-         fp32_instr_per_s=ops_per_s, bf16_flops_per_s=bf16_flops_per_s)
+         fp32_instr_per_s=ops_per_s, bf16_flops_per_s=bf16_flops_per_s,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    # the SSD's float32 einsums must not round to TF32 (the CPU does not)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     print(card, flush=True)
 
     # one nvcc per kernel source, all started together
@@ -1554,8 +1844,10 @@ def main() -> int:
 
     # ---- the serving path: flash kernel first, then the main path ----------
     cfg = get_config(SERVE_ARCH).model
-    prompt_lens = sorted({len(p) for p in serve_prompts(cfg.vocab)})
-    flash_rows, flash_err = phase_flash(fa, ref, prompt_lens,
+    prompts = serve_prompts(cfg.vocab)
+    prompt_lens = sorted({len(p) for p in prompts})
+    family_lens = sorted({len(p) for p in prompts[:FAMILY_REQUESTS]})
+    flash_rows, flash_err = phase_flash(fa, ref, prompt_lens, family_lens,
                                         bf16_flops_per_s)
     flash_launches, params = phase_serve(fa, PM, Request, Server, cfg)
     torch.cuda.empty_cache()
@@ -1563,6 +1855,23 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_cpu_vs_gpu(PM, cfg)
+
+    # ---- the other families' serving paths, each counted from zero --------
+    family_launches = {}
+    t = [time.perf_counter()]
+    for arch in FAMILY_ARCHS:
+        fcfg = family_config(get_config, arch)
+        family_launches[arch] = phase_serve_family(fa, PM, L, Request,
+                                                   Server, fcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_family_cpu_vs_gpu(PM, L, get_config, fcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+    emit(phase="serve_family_seconds",
+         phase_s=dict(zip(FAMILY_ARCHS, np.diff(t).tolist())),
+         seconds=t[-1] - t[0])
 
     def minplus_entry(path, name, launches, err):
         k = rows[path][512]
@@ -1572,11 +1881,15 @@ def main() -> int:
             "replaces": "src/repro/kernels/minplus.py:24", "path": path,
             "launches": launches, "parity": "exact", "max_abs_err": err,
             "shape": [512, 512, 512], "ms": k["ms"],
-            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "device_ms": k["device_ms"],
+            "device_ms_source": k["device_ms_source"],
+            "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None,
             "device_ms_by_n": {n: r["device_ms"]
-                               for n, r in rows[path].items()}}
+                               for n, r in rows[path].items()},
+            "device_ms_source_by_n": {n: r["device_ms_source"]
+                                      for n, r in rows[path].items()}}
 
     f = flash_rows[2048]
     print(json.dumps({"kernels": [
@@ -1589,6 +1902,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:24",
         "launches": flash_launches,
         "launches_prefill_long": long_launches,
+        "launches_serve_family": family_launches,
         "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
         "max_abs_err": flash_err[torch.bfloat16],
         "max_abs_err_f32": flash_err[torch.float32],
@@ -1606,7 +1920,8 @@ def main() -> int:
         "parity": "exact vs the plain version on the CPU",
         "max_abs_err": spmv_err, "shape": "A^T y of the 4x8x8 synthesis LP",
         **{k: spmv_rows["AT y 4x8x8"][k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "ms", "device_ms", "device_ms_source", "plain_ms", "bound_ms",
+            "bound_by",
             "library_ms", "order_bound_ms", "bound_share")},
         "dadd_latency_cycles": dadd_cycles,
         "by_shape": spmv_rows}]}), flush=True)

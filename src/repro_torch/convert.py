@@ -5,7 +5,7 @@ Everything enters as numpy arrays, so nothing here needs the JAX
 package: the synthesized fabrics in ``benchmarks/results/*.pkl`` are
 plain dicts with an ``optical`` list, a reference ``SimTables`` converts
 through :func:`sim_tables_from_arrays` with a dict of its fields, and a
-JAX LM's parameter tree converts through :func:`lm_params_from_jax`
+JAX model's parameter tree converts through :func:`params_from_jax`
 after ``np.asarray`` on each leaf.
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ from repro_torch.core.pathtable import CSRPathTable
 from repro_torch.core.topology import Pod, Topology
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import DecoderLM
+from repro_torch.models.seq2seq import EncDecLM
 
 SIM_TABLE_KEYS = ("n", "n_ch", "n_vc", "ch_dst", "src_indptr", "dst",
                   "hop_indptr", "chan", "vc")
@@ -78,31 +79,32 @@ def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Leaves of a tree of dicts and lists under dotted names (a list's
+    items by index)."""
     out = {}
-    for key, val in tree.items():
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, val in items:
         name = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             out.update(_flatten(val, name + "."))
         else:
             out[name] = np.asarray(val)
     return out
 
 
-def lm_params_from_jax(cfg, params: Mapping, device=None) -> DecoderLM:
-    """The port's :class:`DecoderLM` (dense family) holding the weights
-    of a reference LM parameter tree (``repro.models.lm.init_params``
-    layout, leaves as numpy arrays). The ``blocks`` subtree is stacked
-    over a leading layer axis there and is unstacked into
-    ``blocks.{i}``. Raises on a missing, extra or misshapen leaf."""
-    model = DecoderLM(cfg, resolve_device(device))
-    state = {}
-    for name, arr in _flatten(params).items():
-        if name.startswith("blocks."):
-            for i in range(arr.shape[0]):
-                state[f"blocks.{i}.{name[len('blocks.'):]}"] = arr[i]
-        else:
-            state[name] = arr
+def _unstack(state: Dict[str, np.ndarray], arr: np.ndarray, top: str,
+             leaf: str, first: int = 0, step: int = 1) -> None:
+    """Layer ``j`` of a leaf stacked over a leading layer axis becomes
+    ``{top}.{first + j * step}.{leaf}``."""
+    for j in range(arr.shape[0]):
+        state[f"{top}.{first + j * step}.{leaf}"] = arr[j]
+
+
+def _load(model: torch.nn.Module, state: Mapping[str, np.ndarray]
+          ) -> torch.nn.Module:
+    """Copy ``state`` into ``model``'s parameters, bit for bit. Raises on
+    a missing, extra or misshapen leaf, or one of another dtype."""
     want = dict(model.named_parameters())
     if set(state) != set(want):
         raise KeyError(f"parameter trees differ: missing "
@@ -115,3 +117,62 @@ def lm_params_from_jax(cfg, params: Mapping, device=None) -> DecoderLM:
                              f"the port holds {tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+def module_params_from_jax(module: torch.nn.Module, tree: Mapping
+                           ) -> torch.nn.Module:
+    """Copy a reference sub-tree of one layer (an attention, MLP, MoE or
+    Mamba tree, leaves as numpy arrays) into the port module that holds
+    the same leaves."""
+    return _load(module, _flatten(tree))
+
+
+def params_from_jax(cfg, params: Mapping, device=None):
+    """The port's model holding the weights of a reference parameter tree
+    of any family, leaves as numpy arrays: a :class:`DecoderLM` for the
+    dense, MoE, SSM and hybrid families (``repro.models.lm.init_params``
+    layout), an :class:`EncDecLM` for the encoder-decoder
+    (``repro.models.seq2seq.init_params``). Raises on a missing, extra or
+    misshapen leaf."""
+    device = resolve_device(device)
+    if cfg.family == "encdec":
+        return _load(EncDecLM(cfg, device), _seq2seq_state(params))
+    return _load(DecoderLM(cfg, device), _lm_state(cfg, params))
+
+
+def _lm_state(cfg, params: Mapping) -> Dict[str, np.ndarray]:
+    """An LM tree's leaves under the port's names. The reference's layers
+    go to ``blocks.{i}`` in absolute order: its ``head_blocks[i]`` to
+    ``i``, its stacked ``blocks`` layer ``j`` to ``first_k_dense + j``,
+    and a hybrid's ``blocks.sub{s}`` layer ``j`` to
+    ``j * hybrid_period + s``."""
+    state = {}
+    for name, arr in _flatten(params).items():
+        top, _, rest = name.partition(".")
+        if top == "head_blocks":
+            state[f"blocks.{rest}"] = arr
+        elif top == "blocks" and cfg.family == "hybrid":
+            sub, _, leaf = rest.partition(".")
+            if not sub.startswith("sub"):
+                raise KeyError(f"hybrid layer leaf {name} is not under "
+                               "blocks.sub{s}")
+            _unstack(state, arr, top, leaf, int(sub[3:]), cfg.hybrid_period)
+        elif top == "blocks":
+            _unstack(state, arr, top, rest, cfg.first_k_dense)
+        else:
+            state[name] = arr
+    return state
+
+
+def _seq2seq_state(params: Mapping) -> Dict[str, np.ndarray]:
+    """An encoder-decoder tree's leaves under the port's names: its
+    stacked ``enc_blocks`` and ``dec_blocks`` go to ``enc_blocks.{i}``
+    and ``dec_blocks.{i}``."""
+    state = {}
+    for name, arr in _flatten(params).items():
+        top, _, rest = name.partition(".")
+        if top in ("enc_blocks", "dec_blocks"):
+            _unstack(state, arr, top, rest)
+        else:
+            state[name] = arr
+    return state

@@ -56,7 +56,7 @@ def time_library(lib, source: Path, label: str, mats) -> None:
             print(json.dumps(dict(
                 source=label, path=str(source), kernel=path, n=n,
                 ms=cuda_ms(fn, reps),
-                device_ms=device_ms(fn, reps, "minplus_kernel"), reps=reps)),
+                **device_ms(fn, reps, "minplus_kernel"), reps=reps)),
                 flush=True)
 
 

@@ -117,7 +117,7 @@ def time_spmv(label, lib, launch, ops_) -> None:
                                               x, a.plan)))
         print(json.dumps(dict(
             source=label, operand=name, ms=cuda_ms(fn, REPS),
-            device_ms=device_ms(fn, REPS, "csr_spmv"),
+            **device_ms(fn, REPS, "csr_spmv"),
             equal_to_this=equal, reps=REPS)), flush=True)
 
 

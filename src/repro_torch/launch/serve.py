@@ -2,12 +2,15 @@
 
 Counterpart of ``repro.launch.serve``, with the same semantics, the
 reference's approximations included: prompts are prefilled one request at
-a time, and every decode step advances all slots at one uniform position,
-the largest of the slots' positions (ROADMAP caveat R6). Runs on CUDA by
+a time, every decode step advances all slots at one uniform position,
+the largest of the slots' positions (ROADMAP caveat R6), and an
+encoder-decoder's prompt is encoded from zero frames of its length into a
+cache of ``max_len`` encoder positions (caveat R8). Serves every family
+of ``repro_torch.configs``. Runs on CUDA by
 default (prefill attention on the hand-written flash kernel); pass
 ``device="cpu"`` for the plain torch path.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ class Server:
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_len = max_len
-        self.caches = M.empty_cache(cfg, n_slots, max_len,
+        self.caches = M.empty_cache(cfg, n_slots, max_len, S_enc=max_len,
                                     device=self.device)
         self.tokens = torch.zeros((n_slots, 1), dtype=torch.long,
                                   device=self.device)
@@ -58,12 +61,20 @@ class Server:
     def _prefill_one(self, slot: int, req: Request):
         prompt = torch.as_tensor(req.prompt, dtype=torch.long,
                                  device=self.device)[None, :]
-        logits, cache = M.prefill_fn(self.cfg, self.params,
-                                     {"tokens": prompt},
+        batch = {"tokens": prompt}
+        if self.cfg.family == "encdec":      # the audio frontend's stub
+            batch["frames"] = torch.zeros(
+                (1, prompt.shape[1], self.cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
+        logits, cache = M.prefill_fn(self.cfg, self.params, batch,
                                      cache_len=self.max_len)
-        # the single sequence's cache becomes this slot's batch lane
+        # the single sequence's cache goes into this slot's batch lane: its
+        # leading extent only, the rest of the lane keeps what it held (an
+        # encoder cache shorter than S_enc leaves a stale tail, caveat R8)
         for name, full in self.caches.items():
-            full[:, slot] = cache[name][:, 0]
+            one = cache[name][:, 0]
+            lead = tuple(slice(0, n) for n in one.shape[1:])
+            full[(slice(None), slot) + lead] = one
         tok = int(torch.argmax(logits[0, -1]))
         self.tokens[slot, 0] = tok
         self.pos[slot] = req.prompt.shape[0]

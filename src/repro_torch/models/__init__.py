@@ -1,2 +1,3 @@
-"""The dense LM family in torch: layers, the decoder stack and the
-family-dispatching facade (counterparts of ``repro.models``)."""
+"""The LM families in torch: layers, the decoder stack, the
+encoder-decoder and the family-dispatching facade (counterparts of
+``repro.models``)."""

@@ -1,21 +1,23 @@
-"""Layers of the dense LM family: norms, RoPE, GQA attention, GLU MLP.
+"""Layers of every LM family: norms, RoPE, GQA and cross attention, GLU
+MLP, capacity-based MoE and Mamba2 (SSD).
 
-Counterpart of the dense subset of ``repro.models.layers``. The plain
+Counterpart of ``repro.models.layers``. The plain
 functions take the reference's layouts ((B, S, H, hd) activations) and
 dtypes; the modules hold the parameters under the reference's names and
 in its (in, out) layout, so ``x @ w`` reads the same as there and the
 converter copies arrays one for one. Full-sequence attention goes through
 :func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel
 on CUDA, its plain version on the CPU); one-step decode attention is
-plain torch, as the reference has no kernel there. The reference's
-sharding constraints (``wsc``) are dropped: they do nothing without a
-device mesh, and this path runs on one GPU.
+plain torch, as the reference has no kernel there. The MoE dispatch and
+the SSD are plain torch too, as they are XLA in the reference. The
+reference's sharding constraints (``wsc``) are dropped: they do nothing
+without a device mesh, and this path runs on one GPU.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -179,6 +181,20 @@ class Attention(nn.Module):
         return o.reshape(x.shape[0], 1, -1) @ self.wo
 
 
+def cross_attention(p: Attention, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor], cfg
+                    ) -> torch.Tensor:
+    """Encoder-decoder cross attention: q from ``x`` (B, S, D) without
+    RoPE, non-causal over the encoder's k and v (B, S_enc, Hkv, hd)."""
+    B, S, _ = x.shape
+    q = (x @ p.wq).view(B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.qkv_bias:
+        q = q + p.bq.view(cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv
+    o = gqa_attention(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ p.wo
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -203,3 +219,364 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return glu_mlp(x, self.w1, self.w3, self.w2, self.act)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-dropping, capacity-based)
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """Top-k MoE FFN, the reference's ``init_moe`` tree: ``router`` (D, E)
+    in float32, ``w1``, ``w3`` (E, D, F) and ``w2`` (E, F, D), and with
+    ``n_shared_experts`` a ``shared`` MLP of width F * n_shared."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        D, Fe, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        self.router = new_param(D, E, dtype=torch.float32, device=device)
+        self.w1 = new_param(E, D, Fe, device=device)
+        self.w3 = new_param(E, D, Fe, device=device)
+        self.w2 = new_param(E, Fe, D, device=device)
+        if cfg.n_shared_experts:
+            self.shared = MLP(D, Fe * cfg.n_shared_experts, cfg.act, device)
+
+
+class Route(NamedTuple):
+    """Where a call's T*K (token, expert) entries go, in the order of a
+    stable sort by expert: expert ``se``, token ``st``, gate ``sg`` and
+    place ``pos`` in the expert's buffer; ``keep`` is ``pos < C``, and
+    ``slot`` the entry's row of the flat (E*C, D) buffer, or E*C when it
+    is dropped. ``probs`` (T, E) and ``eidx`` (T, K, best first) are the
+    router's; ``counts`` (E,) the entries each expert was chosen for;
+    ``spos`` (T, K) each token's sorted entries in ascending order, which
+    is ascending expert order."""
+    probs: torch.Tensor
+    eidx: torch.Tensor
+    se: torch.Tensor
+    st: torch.Tensor
+    sg: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    counts: torch.Tensor
+    spos: torch.Tensor
+
+
+def moe_capacity(cfg, T: int) -> int:
+    """Slots per expert for a call of T tokens (truncated, at least 8)."""
+    return max(8, int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def moe_route(p: MoE, xf: torch.Tensor, cfg, C: int) -> Route:
+    """Router in float32 on xf (T, D), the top-k experts of each token,
+    then :func:`moe_assign`."""
+    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    return moe_assign(probs, torch.topk(probs, cfg.top_k)[1], C)
+
+
+def moe_assign(probs: torch.Tensor, eidx: torch.Tensor, C: int) -> Route:
+    """Gates of the chosen experts ``eidx`` (T, K), normalised by
+    ``max(sum, 1e-9)``, then the reference's stable argsort of the flat
+    expert ids and each entry's place in its expert's buffer."""
+    (T, E), K = probs.shape, eidx.shape[1]
+    dev = probs.device
+    gate = probs.gather(1, eidx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    fe = eidx.reshape(T * K)
+    order = torch.argsort(fe, stable=True)
+    se = fe[order]
+    starts = torch.searchsorted(se, torch.arange(E, device=dev))
+    pos = torch.arange(T * K, device=dev) - starts[se]
+    counts = torch.diff(starts, append=starts.new_full((1,), T * K))
+    keep = pos < C
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=dev)
+    return Route(probs, eidx, se, order // K, gate.reshape(T * K)[order],
+                 pos, keep, torch.where(keep, se * C + pos, E * C), counts,
+                 inv.view(T, K).sort(dim=1).values)
+
+
+def moe_dispatch(xf: torch.Tensor, r: Route, E: int, C: int
+                 ) -> torch.Tensor:
+    """The (E, C, D) capacity buffer: each kept entry's token row at its
+    place, zeros elsewhere. Kept places are distinct, so this is a plain
+    scatter; dropped entries land on a spare row that is cut off."""
+    D = xf.shape[1]
+    flat = xf.new_zeros((E * C + 1, D))
+    flat[r.slot] = xf[r.st]
+    return flat[:E * C].view(E, C, D)
+
+
+def moe_experts(p: MoE, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """Every expert's GLU on its whole buffer, empty slots included, as
+    the reference multiplies them: (E, C, D) -> (E, C, D)."""
+    return glu_mlp(buf, p.w1, p.w3, p.w2, act)
+
+
+def moe_combine(out: torch.Tensor, r: Route) -> torch.Tensor:
+    """Gather each kept entry's expert output times its gate (in the
+    model's dtype; a dropped entry reads a zero row), then sum each
+    token's entries in ascending expert order from 0.0 in float32 and
+    round: the order of the reference's scatter-add, the same on every
+    device and in every run."""
+    flat = out.reshape(-1, out.shape[-1])
+    tok = F.pad(flat, (0, 0, 0, 1))[r.slot] * r.sg[:, None].to(out.dtype)
+    tok = tok.float()
+    y = torch.zeros((r.spos.shape[0], flat.shape[1]), dtype=torch.float32,
+                    device=out.device)
+    for k in range(r.spos.shape[1]):
+        y = y + tok[r.spos[:, k]]
+    return y.to(out.dtype)
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, cfg):
+    """Top-k capacity-based MoE: x (B, S, D) -> (y (B, S, D), aux). The
+    tokens of the call (T = B * S) are sorted by expert, scattered into a
+    per-expert buffer of ``moe_capacity(cfg, T)`` slots (later entries of
+    a full expert are dropped), every expert runs on its buffer, and the
+    outputs are gathered back by gate. ``aux`` is the Switch-style load
+    balancing loss in float32."""
+    B, S, D = x.shape
+    E, T = cfg.n_experts, B * S
+    C = moe_capacity(cfg, T)
+    xf = x.reshape(T, D)
+    r = moe_route(p, xf, cfg, C)
+    y = moe_combine(moe_experts(p, moe_dispatch(xf, r, E, C), cfg.act), r)
+    if cfg.n_shared_experts:
+        y = y + p.shared(xf)
+    ce = r.counts.float() / (T * cfg.top_k)
+    aux = E * torch.sum(r.probs.mean(0) * ce)
+    return y.reshape(B, S, D), aux
+
+
+def moe_ffn_local(p: MoE, x: torch.Tensor, cfg):
+    """The reference's per-data-shard dispatch. It returns ``moe_ffn``
+    when there is no mesh of more than one data shard, and the port runs
+    on one device without a mesh, so here it is ``moe_ffn``."""
+    return moe_ffn(p, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD): chunked prefill form and the one-step recurrent form
+# ---------------------------------------------------------------------------
+
+
+class Mamba(nn.Module):
+    """Mamba2 mixer, the reference's ``init_mamba`` tree: ``in_proj`` (D,
+    2*d_in + 2*G*N + H), a depthwise causal conv ``conv_w`` (C, K) and
+    ``conv_b`` (C,) over C = d_in + 2*G*N channels, float32 ``dt_bias``,
+    ``A_log`` and ``D`` (H,), the gated norm's ``norm_w`` and
+    ``out_proj`` (d_in, D)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        D, d_in, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+        GN = cfg.ssm_groups * cfg.ssm_state
+        conv_dim = d_in + 2 * GN
+        f32 = torch.float32
+        self.in_proj = new_param(D, 2 * d_in + 2 * GN + H, device=device)
+        self.conv_w = new_param(conv_dim, cfg.ssm_conv, device=device)
+        self.conv_b = new_param(conv_dim, device=device)
+        self.dt_bias = new_param(H, dtype=f32, device=device)
+        self.A_log = new_param(H, dtype=f32, device=device)
+        self.D = new_param(H, dtype=f32, device=device)
+        self.norm_w = new_param(d_in, device=device)
+        self.out_proj = new_param(d_in, D, device=device)
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv in float32, u (B, S, C), w (C, K), summed in
+    the reference's order: the current tap, then taps 1..K-1 back."""
+    K, S = w.shape[1], u.shape[1]
+    u, w = u.float(), w.float()
+    acc = u * w[:, K - 1]
+    for i in range(1, K):
+        shifted = F.pad(u, (0, 0, i, 0))[:, :S]
+        acc = acc + shifted * w[:, K - 1 - i]
+    return acc + b.float()
+
+
+def _mamba_proj(p: Mamba, x: torch.Tensor, cfg):
+    """x @ in_proj split into z (d_in), xBC (d_in + 2*G*N) and raw dt (H)."""
+    GN = cfg.ssm_groups * cfg.ssm_state
+    return torch.split(x @ p.in_proj,
+                       [cfg.d_inner, cfg.d_inner + 2 * GN, cfg.ssm_heads],
+                       dim=-1)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(exp(x) + 1)`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``); ``F.softplus`` returns x itself above 20."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
+    """Chunked SSD in float32. xh (B, L, H, P), dt (B, L, H), A (H,)
+    negative, Bm and Cm (B, L, G, N) -> y (B, L, H, P) and the final state
+    (B, H, P, N). A ragged L is zero-padded to whole chunks (dt = 0 leaves
+    the state as it is). The reference runs an associative scan over the
+    chunks; here it is a loop over them from the first, the same
+    recurrence in another order of float32 products."""
+    b, l_orig, h, pd = xh.shape
+    dt, A = dt.float(), A.float()
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    pad = (-l_orig) % chunk
+    if pad:
+        def zp(a):
+            return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        xh, dt, Bm, Cm = zp(xh), zp(dt), zp(Bm), zp(Cm)
+    nc = (l_orig + pad) // chunk
+
+    xc = xh.reshape(b, nc, chunk, h, pd).float()
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bh = Bm.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, 3)
+    Ch = Cm.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, 3)
+    dA_cs = torch.cumsum(dtc * A, dim=2)                     # (b, c, q, h)
+
+    # intra-chunk: M[i, j] = C_i . B_j * exp(cs_i - cs_j) * dt_j, i >= j
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)
+    cs = dA_cs.permute(0, 1, 3, 2)                           # (b, c, h, q)
+    ddec = cs[..., :, None] - cs[..., None, :]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=xh.device).tril()
+    M = torch.where(tri, scores * torch.exp(ddec), 0.0)
+    M = M * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
+
+    # chunk-end states, then the recurrence over chunks
+    dec_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs) * dtc
+    S = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", dec_end, Bh, xc)
+    decay = torch.exp(dA_cs[:, :, -1, :])[..., None, None]  # (b, c, h, 1, 1)
+    state = torch.zeros_like(S[:, 0])
+    prevs = []
+    for c in range(nc):
+        prevs.append(state)
+        state = state * decay[:, c] + S[:, c]
+    y_inter = torch.einsum("bcqhn,bcqh,bchpn->bcqhp", Ch, torch.exp(dA_cs),
+                           torch.stack(prevs, 1))
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, pd)[:, :l_orig]
+    return y, state
+
+
+def ssd_step(state, xh, dt, A, Bh, Ch):
+    """One step of the SSM recurrence in float32: state (B, H, P, N), xh
+    (B, H, P), dt (B, H), Bh and Ch (B, H, N) -> (y (B, H, P), state)."""
+    state = state * torch.exp(dt * A)[:, :, None, None] + \
+        (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :]
+    return torch.einsum("bhpn,bhn->bhp", state, Ch), state
+
+
+def ssd_sequential(xh, dt, A, Bm, Cm):
+    """Step-by-step oracle of :func:`ssd_chunked` (same signature, no
+    chunk)."""
+    b, l, h, pd = xh.shape
+    dt, A = dt.float(), A.float()
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    state = torch.zeros((b, h, pd, n), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(l):
+        y, state = ssd_step(state, xh[:, t].float(), dt[:, t], A,
+                            Bm[:, t].float().repeat_interleave(rep, 1),
+                            Cm[:, t].float().repeat_interleave(rep, 1))
+        ys.append(y)
+    return torch.stack(ys, 1), state
+
+
+def _gated_out(p: Mamba, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) @ out_proj, in the model's dtype."""
+    return rmsnorm(y * F.silu(z), p.norm_w) @ p.out_proj
+
+
+def mamba_block(p: Mamba, x: torch.Tensor, cfg, return_cache: bool = False):
+    """Prefill form, x (B, S, D) -> (B, S, D); with ``return_cache`` also
+    {"conv": the last K-1 raw conv inputs (B, K-1, C), "ssm": the final
+    state (B, H, P, N) float32}."""
+    B, S, _ = x.shape
+    d_in, GN, H = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    z, xbc_raw, dt_raw = _mamba_proj(p, x, cfg)
+    xbc = F.silu(_causal_conv(xbc_raw, p.conv_w, p.conv_b))
+    xs, Bm, Cm = torch.split(xbc, [d_in, GN, GN], dim=-1)
+    xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
+    dt = softplus(dt_raw.float() + p.dt_bias)
+    y, s_final = ssd_chunked(
+        xh, dt, -torch.exp(p.A_log),
+        Bm.reshape(B, S, cfg.ssm_groups, cfg.ssm_state),
+        Cm.reshape(B, S, cfg.ssm_groups, cfg.ssm_state),
+        min(cfg.ssm_chunk, S))
+    y = y + xh.float() * p.D[:, None]
+    out = _gated_out(p, y.reshape(B, S, d_in).to(x.dtype), z)
+    if return_cache:
+        return out, {"conv": xbc_raw[:, S - (cfg.ssm_conv - 1):, :],
+                     "ssm": s_final}
+    return out
+
+
+def mamba_decode(p: Mamba, x: torch.Tensor, cfg, conv: torch.Tensor,
+                 ssm: torch.Tensor) -> torch.Tensor:
+    """One-step decode, x (B, 1, D). Advances the caches ``conv`` (B,
+    K-1, C) and ``ssm`` (B, H, P, N) **in place**, as the attention decode
+    writes its cache, and returns (B, 1, D). The conv window is summed in
+    float32, as the prefill's conv."""
+    B = x.shape[0]
+    d_in, GN, H = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    z, xbc, dt_raw = _mamba_proj(p, x, cfg)
+    window = torch.cat([conv, xbc], dim=1)                  # (B, K, C)
+    conv_out = F.silu(torch.einsum("bkc,ck->bc", window.float(),
+                                   p.conv_w.float()) + p.conv_b.float())
+    conv.copy_(window[:, 1:])
+    xs, Bm, Cm = torch.split(conv_out, [d_in, GN, GN], dim=-1)
+    xh = xs.reshape(B, H, cfg.ssm_head_dim)
+    rep = H // cfg.ssm_groups
+    dt = softplus(dt_raw[:, 0].float() + p.dt_bias)
+    y, state = ssd_step(
+        ssm, xh, dt, -torch.exp(p.A_log),
+        Bm.reshape(B, cfg.ssm_groups, cfg.ssm_state).repeat_interleave(rep, 1),
+        Cm.reshape(B, cfg.ssm_groups, cfg.ssm_state).repeat_interleave(rep, 1))
+    ssm.copy_(state)
+    y = y + xh * p.D[:, None]
+    return _gated_out(p, y.reshape(B, 1, d_in).to(x.dtype), z)
+
+
+# ---------------------------------------------------------------------------
+# Initialisation
+# ---------------------------------------------------------------------------
+
+# leaves the reference initialises to zeros (norm gains, biases)
+_ZERO_INIT = frozenset(("ln1", "ln2", "ln_x", "ln_f", "enc_ln_f", "bq", "bk",
+                        "bv", "conv_b", "norm_w"))
+
+
+def init_weights_(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter of ``model`` in place with the reference's
+    distributions, drawn from one ``torch.Generator`` seeded with ``seed``
+    on the model's device in parameter order: ``N(0, 1/fan_in)`` matrices
+    (fan_in = the input width, the second-to-last dim), ``N(0, 0.02^2)``
+    embeddings and ``N(0, 0.25)`` conv taps, drawn in float32 and stored in
+    the parameter's dtype (bf16, the router float32); zero norms, biases,
+    ``conv_b`` and ``norm_w``; Mamba's ``dt_bias = log(expm1(linspace(1e-3,
+    0.1, H)) + 1e-9)``, ``A_log = log(linspace(1, 16, H))`` and ``D = 1``.
+    The draws differ from ``jax.random``'s for the same seed."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ZERO_INIT:
+            p.zero_()
+        elif leaf == "dt_bias":
+            lin = torch.linspace(1e-3, 0.1, p.shape[0], dtype=f32, device=dev)
+            p.copy_(torch.log(torch.exp(lin) - 1.0 + 1e-9))
+        elif leaf == "A_log":
+            p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[0],
+                                             dtype=f32, device=dev)))
+        elif leaf == "D":
+            p.fill_(1.0)
+        else:
+            scale = {"emb": 0.02, "conv_w": 0.5}.get(
+                leaf, 1.0 / math.sqrt(p.shape[-2]) if p.dim() >= 2 else 1.0)
+            p.copy_(torch.randn(p.shape, generator=g, device=dev, dtype=f32)
+                    * scale)
+    return model

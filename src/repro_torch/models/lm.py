@@ -1,17 +1,24 @@
-"""Decoder-only LM, dense family: init, forward, prefill and decode.
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families: init,
+forward, prefill and decode.
 
-Counterpart of the dense family of ``repro.models.lm``. The layers are an
-``nn.ModuleList`` run by a Python loop, not a scanned stack; parameters
-keep the reference's names (``blocks.{i}.attn.wq`` is layer ``i`` of the
-reference's stacked ``blocks/attn/wq``). The KV cache is a dict of two
-(L, B, S, Hkv, hd) bf16 tensors, the reference's stacked layout, and
-:func:`decode_step` writes it in place. The other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Counterpart of ``repro.models.lm``. The layers are one ``nn.ModuleList``
+``blocks`` in absolute layer order, run by a Python loop; each is a
+:class:`Block` of a mixer (attention or Mamba) and an FFN (none, a GLU MLP
+or an MoE), as the reference's layer plan (``_plan``) gives them.
+Parameters keep the reference's leaf names: ``blocks.{i}.attn.wq`` is the
+reference's ``head_blocks[i]`` (the first ``first_k_dense`` layers), its
+stacked ``blocks`` at ``i - first_k_dense``, or for a hybrid its
+``blocks.sub{i % period}`` at ``i // period``; ``convert`` maps them.
+
+The cache is a dict of stacked tensors, one row per layer of the kind
+that uses it, in layer order (:func:`cache_rows`): ``"k"`` and ``"v"``
+(L_attn, B, S, Hkv, hd) bf16 for attention layers, ``"conv"`` (L_mamba,
+B, K-1, C) bf16 and ``"ssm"`` (L_mamba, B, H, P, N) float32 for Mamba
+layers. :func:`decode_step` advances it in place.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,86 +28,123 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
 Cache = Dict[str, torch.Tensor]
-
-_LATER = {
-    "moe": "ROADMAP.md section 1 item 6 (MoE: moe_ffn, first_k_dense)",
-    "ssm": "ROADMAP.md section 1 item 7 (Mamba2/SSD)",
-    "hybrid": "ROADMAP.md section 1 item 8 (hybrid Mamba+attention+MoE)",
-    "encdec": "ROADMAP.md section 1 item 9 (encoder-decoder, seq2seq)",
-}
-_ZERO_INIT = ("ln1", "ln2", "ln_f", "bq", "bk", "bv")
+Kind = Tuple[str, Optional[str]]
 
 
-def check_family(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port runs the dense family only; {cfg.family!r} "
-            f"({cfg.name}) is {_LATER.get(cfg.family, 'not planned')}")
+def layer_kinds(cfg) -> List[Kind]:
+    """(mixer, ffn) of every layer in absolute order: the reference's
+    ``_plan`` unrolled. A hybrid repeats the kinds of its first
+    ``hybrid_period`` layers over ``n_layers // hybrid_period``
+    super-blocks; the other families take ``first_k_dense`` head layers
+    and a body whose layers must all be of one kind."""
+    if cfg.family == "hybrid":
+        subs = [(cfg.mixer_kind(i), cfg.ffn_kind(i))
+                for i in range(cfg.hybrid_period)]
+        return subs * (cfg.n_layers // cfg.hybrid_period)
+    kinds = [(cfg.mixer_kind(i), cfg.ffn_kind(i)) for i in range(cfg.n_layers)]
+    body = kinds[cfg.first_k_dense:]
+    if any(k != body[0] for k in body):
+        raise ValueError(f"{cfg.name}: body layers must be of one kind")
+    return kinds
+
+
+def cache_rows(kinds: List[Kind]) -> List[int]:
+    """Each layer's row in the cache tensors of its mixer."""
+    seen = {"attn": 0, "mamba": 0}
+    rows = []
+    for mixer, _ in kinds:
+        rows.append(seen[mixer])
+        seen[mixer] += 1
+    return rows
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention and a gated MLP."""
+    """One pre-norm layer: ``ln1`` and a mixer (``attn`` or ``mamba``),
+    then, unless ``ffn`` is None, ``ln2`` and an ``mlp`` or ``moe``."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, mixer: str = "attn", ffn: Optional[str] = "mlp",
+                 device=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mixer, self.ffn = cfg, mixer, ffn
         self.ln1 = L.new_param(cfg.d_model, device=device)
-        self.attn = L.Attention(cfg, device)
-        self.ln2 = L.new_param(cfg.d_model, device=device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, device)
+        if mixer == "attn":
+            self.attn = L.Attention(cfg, device)
+        else:
+            self.mamba = L.Mamba(cfg, device)
+        if ffn is not None:
+            self.ln2 = L.new_param(cfg.d_model, device=device)
+            if ffn == "moe":
+                self.moe = L.MoE(cfg, device)
+            else:
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, device)
+
+    def _ffn(self, x: torch.Tensor):
+        """x plus the FFN of ``ln2(x)``, and the MoE's aux loss (None
+        without an MoE)."""
+        if self.ffn is None:
+            return x, None
+        h = L.apply_norm(self.cfg.norm, x, self.ln2)
+        if self.ffn == "moe":
+            f, aux = L.moe_ffn(self.moe, h, self.cfg)
+            return x + f, aux
+        return x + self.mlp(h), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        a, kv = self.attn(L.apply_norm(self.cfg.norm, x, self.ln1), positions)
-        x = x + a
-        x = x + self.mlp(L.apply_norm(self.cfg.norm, x, self.ln2))
-        return x, kv
+        """Full sequence: (x, aux or None, this layer's cache: {"k", "v"}
+        (B, S, Hkv, hd) or {"conv", "ssm"})."""
+        h = L.apply_norm(self.cfg.norm, x, self.ln1)
+        if self.mixer == "attn":
+            a, (k, v) = self.attn(h, positions)
+            cache = {"k": k, "v": v}
+        else:
+            a, cache = L.mamba_block(self.mamba, h, self.cfg,
+                                     return_cache=True)
+        x, aux = self._ffn(x + a)
+        return x, aux, cache
 
-    def decode(self, x, k_cache, v_cache, pos: int, positions):
-        x = x + self.attn.decode(L.apply_norm(self.cfg.norm, x, self.ln1),
-                                 k_cache, v_cache, pos, positions)
-        return x + self.mlp(L.apply_norm(self.cfg.norm, x, self.ln2))
+    def decode(self, x: torch.Tensor, caches: Cache, row: int, pos: int,
+               positions: torch.Tensor) -> torch.Tensor:
+        """One step; advances this layer's ``row`` of ``caches`` in place."""
+        h = L.apply_norm(self.cfg.norm, x, self.ln1)
+        if self.mixer == "attn":
+            a = self.attn.decode(h, caches["k"][row], caches["v"][row], pos,
+                                 positions)
+        else:
+            a = L.mamba_decode(self.mamba, h, self.cfg, caches["conv"][row],
+                               caches["ssm"][row])
+        return self._ffn(x + a)[0]
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a dense decoder LM, uninitialised (see
-    :func:`init_params` and ``convert.lm_params_from_jax``)."""
+    """Parameters of a decoder-only LM, uninitialised (see
+    :func:`init_params` and ``convert.params_from_jax``)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        check_family(cfg)
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name} is an encoder-decoder: "
+                             "models.seq2seq.EncDecLM holds it")
         D, V = cfg.d_model, cfg.vocab
         self.cfg = cfg
+        self.kinds = layer_kinds(cfg)
+        self.rows = cache_rows(self.kinds)
         self.emb = L.new_param(V, D, device=device)
         self.ln_f = L.new_param(D, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = L.new_param(D, V, device=device)
         if cfg.n_vision_tokens:
             self.vis_proj = L.new_param(D, D, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, m, f, device)
+                                    for m, f in self.kinds)
 
     def head(self) -> torch.Tensor:
         return self.emb.T if self.cfg.tie_embeddings else self.lm_head
 
 
 def init_params(cfg, seed: int = 0, device=None) -> DecoderLM:
-    """Random weights on ``device`` (``None`` = CUDA) from an explicit
-    ``torch.Generator`` seeded with ``seed``, with the reference's
-    distributions: ``N(0, 1/fan_in)`` matrices (fan_in = the input
-    width), ``N(0, 0.02^2)`` embeddings, all drawn in f32 and stored in
-    bf16; zero norms and biases. The draws differ from ``jax.random``'s
-    for the same seed (compare on converted weights)."""
-    dev = resolve_device(device)
-    model = DecoderLM(cfg, dev)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in _ZERO_INIT:
-            p.zero_()
-            continue
-        scale = 0.02 if name == "emb" else 1.0 / math.sqrt(p.shape[-2])
-        p.copy_(torch.randn(p.shape, generator=g, device=dev,
-                            dtype=torch.float32) * scale)
-    return model
+    """Random weights on ``device`` (``None`` = CUDA) with the reference's
+    distributions (:func:`layers.init_weights_`)."""
+    return L.init_weights_(DecoderLM(cfg, resolve_device(device)), seed)
 
 
 def _embed(model: DecoderLM, tokens: torch.Tensor,
@@ -113,46 +157,63 @@ def _embed(model: DecoderLM, tokens: torch.Tensor,
 
 
 def forward(model: DecoderLM, tokens: torch.Tensor,
-            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V)."""
+            extra_embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S) -> (logits (B, S, V), the MoE layers' aux loss summed
+    in float32)."""
     x = _embed(model, tokens, extra_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in model.blocks:
-        x, _ = blk(x, positions)
-    return L.apply_norm(model.cfg.norm, x, model.ln_f) @ model.head()
+        x, aux, _ = blk(x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return L.apply_norm(model.cfg.norm, x, model.ln_f) @ model.head(), \
+        aux_total
 
 
 def empty_cache(cfg, B: int, S: int, device=None) -> Cache:
-    """Zero KV cache, (L, B, S, Hkv, hd) bf16 for k and v."""
-    check_family(cfg)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    """Zero cache for B sequences of up to S positions (module docstring)."""
+    kinds = layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    n_mamba = len(kinds) - n_attn
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+    out = {}
+    if n_attn:
+        shape = (n_attn, B, S, cfg.n_kv_heads, cfg.head_dim)
+        out["k"] = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        out["v"] = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    if n_mamba:
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        out["conv"] = torch.zeros((n_mamba, B, cfg.ssm_conv - 1, conv_dim),
+                                  dtype=torch.bfloat16, device=dev)
+        out["ssm"] = torch.zeros((n_mamba, B, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev)
+    return out
 
 
-def _pad_attn_cache(cache: Cache, S_total: int) -> Cache:
-    """Grow prefill (k, v) of length S (axis 2) to the full cache length."""
-    def pad(a):
-        return F.pad(a, (0, 0, 0, 0, 0, max(S_total - a.shape[2], 0)))
-    return {"k": pad(cache["k"]), "v": pad(cache["v"])}
+def pad_seq(a: torch.Tensor, S_total: int) -> torch.Tensor:
+    """Grow a stacked (L, B, S, H, hd) cache to S_total positions."""
+    return F.pad(a, (0, 0, 0, 0, 0, max(S_total - a.shape[2], 0)))
 
 
 def prefill(model: DecoderLM, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None):
-    """Run the prompt (B, S): returns (last-token logits (B, 1, V), caches
-    padded to ``cache_len``)."""
+    """Run the prompt (B, S): returns (last-token logits (B, 1, V), the
+    cache with k and v padded to ``cache_len``)."""
     S = tokens.shape[1]
     x = _embed(model, tokens, extra_embeds)
     positions = torch.arange(S, device=tokens.device)
-    ks, vs = [], []
+    per: Dict[str, List[torch.Tensor]] = {}
     for blk in model.blocks:
-        x, (k, v) = blk(x, positions)
-        ks.append(k)
-        vs.append(v)
-    caches = _pad_attn_cache({"k": torch.stack(ks), "v": torch.stack(vs)},
-                             cache_len or S)
+        x, _, c = blk(x, positions)
+        for name, t in c.items():
+            per.setdefault(name, []).append(t)
+    caches = {name: torch.stack(ts) for name, ts in per.items()}
+    for name in ("k", "v"):
+        if name in caches:
+            caches[name] = pad_seq(caches[name], cache_len or S)
     x = L.apply_norm(model.cfg.norm, x[:, -1:, :], model.ln_f)
     return x @ model.head(), caches
 
@@ -163,6 +224,6 @@ def decode_step(model: DecoderLM, caches: Cache, token: torch.Tensor,
     V), caches). The caches are updated in place and returned."""
     x = F.embedding(token, model.emb).to(torch.bfloat16)
     positions = torch.tensor([pos], device=token.device)
-    for i, blk in enumerate(model.blocks):
-        x = blk.decode(x, caches["k"][i], caches["v"][i], pos, positions)
+    for blk, row in zip(model.blocks, model.rows):
+        x = blk.decode(x, caches, row, pos, positions)
     return L.apply_norm(model.cfg.norm, x, model.ln_f) @ model.head(), caches

@@ -2,7 +2,7 @@
 
 qwen2.5-3b at ``smoke_model()`` (2 layers, d_model 256, 4 query and 2 kv
 heads of 64, vocab 512), reference weights from ``PRNGKey(0)`` carried
-over by ``convert.lm_params_from_jax``; on the CPU the port's attention
+over by ``convert.params_from_jax``; on the CPU the port's attention
 takes the flash kernel's plain version.
 
 Tolerances, each with its reason:
@@ -48,7 +48,7 @@ def _pair(arch):
     jcfg = jreg.get_config(arch).smoke_model()
     pcfg = preg.get_config(arch).smoke_model()
     params = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    model = convert.lm_params_from_jax(
+    model = convert.params_from_jax(
         pcfg, jax.tree.map(np.asarray, params), device="cpu")
     return jcfg, params, pcfg, model
 
@@ -86,14 +86,86 @@ def test_configs_match_the_reference():
             dataclasses.asdict(j.smoke_model()), arch
 
 
-def test_other_families_raise_with_their_roadmap_item():
-    for arch in ("deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
-                 "seamless-m4t-medium"):
-        cfg = preg.get_config(arch).smoke_model()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PM.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PM.empty_cache(cfg, 1, 8, device="cpu")
+OTHER_ARCHS = ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+               "jamba-v0.1-52b", "seamless-m4t-medium"]
+
+
+def _reference_leaves(jcfg, tree):
+    """The reference tree's leaves under the port's names, layer by layer
+    (an independent statement of the converter's mapping)."""
+    out = {}
+    for name, arr in convert._flatten(jax.tree.map(np.asarray, tree)).items():
+        top, _, rest = name.partition(".")
+        if top == "head_blocks":
+            out[f"blocks.{rest}"] = arr
+        elif top == "blocks" and jcfg.family == "hybrid":
+            sub, _, leaf = rest.partition(".")
+            for j in range(arr.shape[0]):
+                i = j * jcfg.hybrid_period + int(sub[len("sub"):])
+                out[f"blocks.{i}.{leaf}"] = arr[j]
+        elif top in ("blocks", "enc_blocks", "dec_blocks"):
+            first = jcfg.first_k_dense if top == "blocks" else 0
+            for j in range(arr.shape[0]):
+                out[f"{top}.{first + j}.{rest}"] = arr[j]
+        else:
+            out[name] = arr
+    return out
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_other_families_init_cache_and_convert(arch):
+    """The five archs beyond the dense family at ``smoke_model()``: the
+    port's init has the reference's leaves, shapes and dtypes and its
+    special leaves (f32 router; conv taps at scale 0.5; zero conv bias
+    and gated-norm gain; ``dt_bias``, ``A_log`` and ``D`` by the
+    reference's formulas); ``empty_cache`` holds a zero cache of every
+    kind its layers use; and the converter carries the reference's tree
+    over bit for bit."""
+    jcfg = jreg.get_config(arch).smoke_model()
+    pcfg = preg.get_config(arch).smoke_model()
+    tree = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    want = _reference_leaves(jcfg, tree)
+    model = PM.init_params(pcfg, seed=0, device="cpu")
+    params = dict(model.named_parameters())
+    assert sorted(params) == sorted(want)
+    for name, p in params.items():
+        assert tuple(p.shape) == want[name].shape, name
+        assert str(p.dtype).split(".")[-1] == str(want[name].dtype), name
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("dt_bias", "A_log", "D"):
+            np.testing.assert_allclose(p.numpy(), want[name], rtol=1e-6,
+                                       atol=1e-6, err_msg=name)
+        elif leaf in ("conv_b", "norm_w", "ln_x", "enc_ln_f"):
+            assert not p.any(), name
+    for name, p in params.items():
+        if name.endswith("moe.router"):
+            assert abs(float(p.std()) - pcfg.d_model ** -0.5) < 0.01, name
+        if name.endswith("conv_w"):
+            assert abs(float(p.float().std()) - 0.5) < 0.03, name
+
+    S_enc = 6 if pcfg.family == "encdec" else None
+    cache = PM.empty_cache(pcfg, 3, 8, S_enc=S_enc, device="cpu")
+    kinds = {"encdec": ["ek", "ev", "k", "v"], "ssm": ["conv", "ssm"],
+             "hybrid": ["conv", "k", "ssm", "v"]}.get(pcfg.family,
+                                                       ["k", "v"])
+    assert sorted(cache) == kinds
+    assert all(not c.any() and c.shape[1] == 3 for c in cache.values())
+    if "ek" in cache:
+        assert cache["ek"].shape[2] == 6 and cache["k"].shape[2] == 8
+    if "ssm" in cache:
+        assert cache["ssm"].dtype == torch.float32
+        assert cache["ssm"].shape[2:] == (pcfg.ssm_heads, pcfg.ssm_head_dim,
+                                          pcfg.ssm_state)
+
+    conv = convert.params_from_jax(pcfg, jax.tree.map(np.asarray, tree),
+                                   device="cpu")
+    for name, p in conv.named_parameters():
+        arr = want[name]
+        if p.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(p.view(torch.int16).numpy(),
+                                          arr.view(np.int16), err_msg=name)
+        else:
+            np.testing.assert_array_equal(p.numpy(), arr, err_msg=name)
 
 
 # --- layers -------------------------------------------------------------------
@@ -190,8 +262,9 @@ def test_forward_matches(arch):
     want, _ = jlm.forward(jcfg, params, jnp.asarray(toks, jnp.int32),
                           patches)
     with torch.no_grad():
-        got = plm.forward(model, torch.as_tensor(toks),
-                          None if patches is None else _t(patches))
+        got, aux = plm.forward(model, torch.as_tensor(toks),
+                               None if patches is None else _t(patches))
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
     assert got.dtype == torch.bfloat16
     assert got.shape == (2, 24, jcfg.vocab)
     _close(got, want, BF16_MODEL)
@@ -235,7 +308,7 @@ def test_prefill_decode_matches_forward(pair):
     toks = torch.as_tensor(_tokens(pcfg, seed=2))
     t = 16
     with torch.no_grad():
-        full = plm.forward(model, toks).float()
+        full = plm.forward(model, toks)[0].float()
         logits, caches = PM.prefill_fn(pcfg, model, {"tokens": toks[:, :t]},
                                        cache_len=24)
         torch.testing.assert_close(logits[:, 0].float(), full[:, t - 1],
@@ -285,8 +358,8 @@ def test_convert_rejects_a_mismatched_tree(pair):
     tree = jax.tree.map(np.asarray, params)
     del tree["blocks"]["attn"]["bq"]
     with pytest.raises(KeyError, match="bq"):
-        convert.lm_params_from_jax(pcfg, tree, device="cpu")
+        convert.params_from_jax(pcfg, tree, device="cpu")
     tree = jax.tree.map(np.asarray, params)
     tree["ln_f"] = np.zeros(3, ml_dtypes.bfloat16)
     with pytest.raises(ValueError, match="ln_f"):
-        convert.lm_params_from_jax(pcfg, tree, device="cpu")
+        convert.params_from_jax(pcfg, tree, device="cpu")
