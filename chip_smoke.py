@@ -19,9 +19,13 @@ ragged requests through the port's ``Server``, then one 32768-token
 prefill; then the MoE, SSM, hybrid and encoder-decoder families --
 deepseek-moe-16b, mamba2-2.7b, jamba-v0.1-52b cut to 16 of its 32
 layers, seamless-m4t-medium -- each at its published widths, 6 requests
-served twice with equal token streams, and its CPU-vs-CUDA case) --
-checks that the simulator's, the LP solver's and the model's CUDA and
-CPU runs agree, and prints one JSON line per result.
+served twice with equal token streams, and its CPU-vs-CUDA case) and
+training (qwen2.5-3b at its published widths through ``Trainer``: 8
+steps with an async checkpoint, then one step of 4096 tokens; the smoke
+model's 3 steps on CUDA against the CPU, and a run resumed from a
+checkpoint against a straight one, bit for bit; the flash kernel must
+not launch) -- checks that the simulator's, the LP solver's and the
+model's CUDA and CPU runs agree, and prints one JSON line per result.
 
     python3 chip_smoke.py
 
@@ -39,8 +43,11 @@ import gc
 import json
 import math
 import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from hashlib import sha256
@@ -82,6 +89,15 @@ FAMILY_TAGS = {"moe": ("moe_route", "moe_dispatch", "moe_experts",
 # between two bf16 lowerings of one model (test_models.py, prefill/decode
 # against the full forward)
 MODEL_RTOL, MODEL_ATOL = 0.06, 0.15
+# the training path: qwen2.5-3b at full width through Trainer with the
+# launcher's defaults, TRAIN_STEPS steps; then one step at train_4k's
+# sequence length (configs/base.py)
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 128, 3e-4
+TRAIN_LONG_S = 4096
+# the CPU tests' tolerances for 3 steps of the port against the reference
+# (tests/test_torch_train.py: losses rtol 1e-2, PARAM_REL over all leaves)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_REL = 1e-2, 0.0077
 
 
 def check(cond, msg):
@@ -951,6 +967,252 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
         check(torch.allclose(g, c, rtol=MODEL_RTOL, atol=MODEL_ATOL),
               f"{cfg.name}: CPU and CUDA logits differ by {err}; experts "
               f"chosen otherwise on the two devices: {other or 'none'}")
+
+
+# ---------------------------------------------------------------------------
+# The training path (ROADMAP item 10): the dense family, qwen2.5-3b
+# ---------------------------------------------------------------------------
+
+
+def train_flops_per_token(cfg, n_params: int, S: int) -> float:
+    """Model flops of one token of a training step, forward and backward
+    (remat's recompute not counted): 6 N for the weights' matmuls, where
+    N is every parameter but an untied embedding (a lookup; a tied one is
+    the head's V x D matmul and counts once), plus 12 L Hq hd S for the
+    attention scores and P.V over all S positions (the blocked attention
+    computes every block, the masked ones too)."""
+    N = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    return 6.0 * N + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * S
+
+
+def train_config(cfg, steps, ckpt_dir, lr, warmup, total, batch, seq, dev,
+                 log_every=100):
+    """A ``Trainer`` of ``cfg`` from seed 0 for ``steps`` steps of a
+    schedule of ``total``, checkpointing at the last, as
+    ``launch/train.py`` builds it."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    return Trainer(cfg, DataConfig(cfg.vocab, seq, batch),
+                   OptConfig(lr=lr, total_steps=total, warmup_steps=warmup),
+                   TrainConfig(steps=steps, ckpt_dir=str(ckpt_dir),
+                               ckpt_every=steps, log_every=log_every),
+                   seed=0, device=dev)
+
+
+def phase_train_full(fa, cfg, bf16_flops_per_s, dev="cuda"):
+    """The training main path at full width: ``Trainer.run`` with the
+    launcher's defaults (batch 4, seq 128, lr 3e-4, warmup max(steps //
+    10, 5)) for TRAIN_STEPS steps, an async checkpoint at the last step
+    into a temporary directory (removed afterwards); then one more step
+    under the profiler. Returns (the trainer, flash launches)."""
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train_config(cfg, TRAIN_STEPS, ckpt_dir, TRAIN_LR,
+                          max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
+                          TRAIN_BATCH, TRAIN_SEQ, dev, log_every=1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+        calls, save = [], tr.ckpt.save
+
+        def timed_save(step, state, blocking=False):
+            calls.append(time.time())
+            save(step, state, blocking)
+        tr.ckpt.save = timed_save
+        fa.launches = 0                               # the training path
+        out = tr.run()
+        launches = fa.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        final = ckpt_dir / f"step-{TRAIN_STEPS}"
+        manifest = json.loads((final / "manifest.json").read_text())
+        save_s = manifest["time"] - calls[0]
+        ckpt_gb = sum(f.stat().st_size for f in final.iterdir()) / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    batch = tr.data.torch_batch(TRAIN_STEPS, dev)
+    prof = busy_share(lambda: tr.step_fn(tr.model, tr.opt_state, batch))
+    launches = fa.launches                  # the run and the profiled steps
+    losses = out["losses"]
+    med = statistics.median(out["step_times"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fpt = train_flops_per_token(cfg, n_params, TRAIN_SEQ)
+    emit(phase="train_full", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_params=n_params, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR,
+         warmup=max(TRAIN_STEPS // 10, 5), remat=cfg.remat,
+         attn_block=cfg.attn_block, losses=losses,
+         step_times_s=out["step_times"], median_step_s_after_first=med,
+         tokens_per_s=tokens / med, flops_per_token=fpt,
+         flops_formula="6 N + 12 L Hq hd S a token (N parameters, the "
+                       "tied embedding once), remat's recompute not counted",
+         model_tflops_per_s=fpt * tokens / med / 1e12,
+         bf16_peak_share=fpt * tokens / med / bf16_flops_per_s,
+         init_s=init_s, resident_gb_before=resident_gb,
+         state_gb=state_gb, max_memory_gb=peak_gb,
+         flash_launches=launches, stragglers=out["stragglers"],
+         kernels_per_step=prof["kernels"], busy_share=prof["busy_share"],
+         profiled_step_s=prof["wall_s"], device_busy_s=prof["device_busy_s"],
+         free_disk_gb_before_save=free_gb, save_s=save_s,
+         checkpoint_gb=ckpt_gb, checkpoint_leaves=manifest["n_leaves"])
+    check(out["final_step"] == TRAIN_STEPS,
+          f"trained {out['final_step']} of {TRAIN_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check((losses[-1] + losses[-2]) / 2 < losses[0],
+          f"the loss did not fall: {losses}")
+    check(launches == 0, f"training launched the flash kernel {launches} "
+          "times")
+    return tr, launches
+
+
+def phase_train_long(fa, tr, cfg, bf16_flops_per_s, dev="cuda"):
+    """One training step of the full-width model at train_4k's sequence
+    length (B 1, S TRAIN_LONG_S), after train_full: seconds and peak
+    memory of the first step, then a profiled step; and the blocked
+    attention's share of it, from one layer's attention timed alone
+    (forward, and the remat's forward again with the backward) times the
+    layers. Returns the flash launches."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models import layers as L
+    batch = SyntheticLM(DataConfig(cfg.vocab, TRAIN_LONG_S, 1)).torch_batch(
+        0, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    fa.launches = 0                                   # the long step
+    t0 = time.perf_counter()
+    loss = float(tr.step_fn(tr.model, tr.opt_state, batch)["loss"])
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = busy_share(lambda: tr.step_fn(tr.model, tr.opt_state, batch))
+    launches = fa.launches
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    S, hd = TRAIN_LONG_S, cfg.head_dim
+
+    def rand(H):
+        return torch.randn((1, S, H, hd), generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+    q, k, v = rand(cfg.n_heads), rand(cfg.n_kv_heads), rand(cfg.n_kv_heads)
+    ct = torch.randn(q.shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    def attn():
+        return L.blocked_attention(q, k, v, causal=True,
+                                   block=cfg.attn_block)
+
+    def attn_fwd_bwd():
+        torch.autograd.grad(attn(), (q, k, v), ct)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(attn, 3)
+    fwd_bwd_ms = cuda_ms(attn_fwd_bwd, 3)
+    attn_step_ms = cfg.n_layers * (fwd_ms + fwd_bwd_ms)
+    fpt = train_flops_per_token(
+        cfg, sum(p.numel() for p in tr.model.parameters()), TRAIN_LONG_S)
+    flops_per_s = fpt * TRAIN_LONG_S / prof["wall_s"]
+    emit(phase="train_long", arch=cfg.name, n_layers=cfg.n_layers, batch=1,
+         seq=TRAIN_LONG_S, attn_block=cfg.attn_block, remat=cfg.remat,
+         loss=loss, first_step_s=first_s, max_memory_gb=peak_gb,
+         resident_gb_before=base_gb, profiled_step_s=prof["wall_s"],
+         device_busy_s=prof["device_busy_s"], busy_share=prof["busy_share"],
+         kernels_per_step=prof["kernels"], flash_launches=launches,
+         tokens_per_s=TRAIN_LONG_S / prof["wall_s"], flops_per_token=fpt,
+         model_tflops_per_s=flops_per_s / 1e12,
+         bf16_peak_share=flops_per_s / bf16_flops_per_s,
+         attn_layer_fwd_ms=fwd_ms, attn_layer_fwd_bwd_ms=fwd_bwd_ms,
+         attn_ms_per_step=attn_step_ms,
+         attn_share_of_device_time=attn_step_ms / 1e3 /
+         prof["device_busy_s"])
+    check(math.isfinite(loss), f"long step loss {loss}")
+    check(launches == 0, f"the long step launched flash {launches} times")
+    return launches
+
+
+def phase_train_cpu_vs_gpu(get_config, dev="cuda"):
+    """The smoke config's weights (seed 0, made on the CPU) trained 3
+    steps on the CPU and on CUDA with ``make_step`` on identical batches
+    (B 4, S 32, lr 1e-3, warmup 1): losses within TRAIN_LOSS_RTOL and the
+    parameters within TRAIN_PARAM_REL over all leaves, the CPU tests'
+    tolerances for the port against the reference at this config."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models import model as PM
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainConfig, make_step
+    cfg = get_config(TRAIN_ARCH).smoke_model()
+    cpu = PM.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    data = SyntheticLM(DataConfig(cfg.vocab, 32, 4))
+    oc = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    losses = {}
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        model.requires_grad_(True)
+        step = make_step(cfg, oc, TrainConfig())
+        state = adamw.init(dict(model.named_parameters()))
+        losses[d] = [float(step(model, state, data.torch_batch(s, d))["loss"])
+                     for s in range(3)]
+    num = den = 0.0
+    for (name, c), (_, gp) in zip(cpu.named_parameters(),
+                                  gpu.named_parameters()):
+        c, gp = c.detach().float(), gp.detach().float().cpu()
+        num += float(((gp - c) ** 2).sum())
+        den += float((c ** 2).sum())
+    param_rel = math.sqrt(num / den)
+    loss_rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                   losses[dev])]
+    emit(phase="train_cpu_vs_gpu", arch=cfg.name, cut="smoke_model",
+         steps=3, losses_cpu=losses["cpu"], losses_cuda=losses[dev],
+         loss_rel_err=loss_rel, param_rel_err=param_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, param_rel_bound=TRAIN_PARAM_REL)
+    check(max(loss_rel) <= TRAIN_LOSS_RTOL,
+          f"CPU and CUDA losses differ: {losses}")
+    check(param_rel <= TRAIN_PARAM_REL,
+          f"CPU and CUDA parameters differ by {param_rel} after 3 steps")
+
+
+def phase_train_resume(get_config, dev="cuda"):
+    """The smoke config on the card: 4 steps straight, again, and 2
+    steps, a checkpoint, a new ``Trainer`` and 2 more. Parameters,
+    moments and step equal bit for bit in all three, losses too."""
+    cfg = get_config(TRAIN_ARCH).smoke_model()
+
+    def snapshot(tr):
+        out = [p.detach().clone() for p in tr.model.parameters()]
+        for key in ("m", "v"):
+            out += [t.clone() for t in tr.opt_state[key].values()]
+        return out + [tr.opt_state["step"].clone()]
+
+    def trainer(d, steps):
+        return train_config(cfg, steps, d, 1e-3, 1, 4, 4, 32, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as root:
+        root = Path(root)
+        runs, losses = [], []
+        for name in ("a", "b"):
+            tr = trainer(root / name, 4)
+            losses.append(tr.run()["losses"])
+            runs.append(snapshot(tr))
+        first = trainer(root / "c", 2)
+        split = first.run()["losses"]
+        second = trainer(root / "c", 4)
+        resumed_from = second.start_step
+        losses.append(split + second.run()["losses"])
+        runs.append(snapshot(second))
+    same = [all(torch.equal(x, y) for x, y in zip(runs[0], r))
+            for r in runs[1:]]
+    emit(phase="train_resume", arch=cfg.name, cut="smoke_model", steps=4,
+         resumed_from=resumed_from, losses=losses, leaves=len(runs[0]),
+         rerun_equal=same[0], resume_equal=same[1],
+         losses_equal=losses[0] == losses[1] == losses[2])
+    check(resumed_from == 2, f"resumed from step {resumed_from}, not 2")
+    check(all(same), f"runs differ (rerun, resume): {same}")
+    check(losses[0] == losses[1] == losses[2], f"losses differ: {losses}")
 
 
 def drive(name, topo, PNS, route_pod):
@@ -1873,6 +2135,23 @@ def main() -> int:
          phase_s=dict(zip(FAMILY_ARCHS, np.diff(t).tolist())),
          seconds=t[-1] - t[0])
 
+    # ---- the training path: flash launches counted from zero, must stay 0 -
+    t = [time.perf_counter()]
+    tcfg = get_config(TRAIN_ARCH).model
+    trainer, train_launches = phase_train_full(fa, tcfg, bf16_flops_per_s)
+    t.append(time.perf_counter())
+    train_launches += phase_train_long(fa, trainer, tcfg, bf16_flops_per_s)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    phase_train_cpu_vs_gpu(get_config)
+    phase_train_resume(get_config)
+    t.append(time.perf_counter())
+    emit(phase="train_seconds", phase_s=dict(zip(
+        ("train_full", "train_long", "cpu_vs_gpu+resume"),
+        np.diff(t).tolist())), seconds=t[-1] - t[0])
+
     def minplus_entry(path, name, launches, err):
         k = rows[path][512]
         return {
@@ -1903,6 +2182,7 @@ def main() -> int:
         "launches": flash_launches,
         "launches_prefill_long": long_launches,
         "launches_serve_family": family_launches,
+        "launches_training": train_launches,
         "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
         "max_abs_err": flash_err[torch.bfloat16],
         "max_abs_err_f32": flash_err[torch.float32],

@@ -6,7 +6,8 @@ package: the synthesized fabrics in ``benchmarks/results/*.pkl`` are
 plain dicts with an ``optical`` list, a reference ``SimTables`` converts
 through :func:`sim_tables_from_arrays` with a dict of its fields, and a
 JAX model's parameter tree converts through :func:`params_from_jax`
-after ``np.asarray`` on each leaf.
+after ``np.asarray`` on each leaf, and its AdamW state through
+:func:`opt_state_from_jax`.
 """
 from __future__ import annotations
 
@@ -135,9 +136,42 @@ def params_from_jax(cfg, params: Mapping, device=None):
     (``repro.models.seq2seq.init_params``). Raises on a missing, extra or
     misshapen leaf."""
     device = resolve_device(device)
-    if cfg.family == "encdec":
-        return _load(EncDecLM(cfg, device), _seq2seq_state(params))
-    return _load(DecoderLM(cfg, device), _lm_state(cfg, params))
+    model = EncDecLM if cfg.family == "encdec" else DecoderLM
+    return _load(model(cfg, device), _state(cfg, params))
+
+
+def _state(cfg, tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference parameter-shaped tree's leaves under the port's names."""
+    return _seq2seq_state(tree) if cfg.family == "encdec" \
+        else _lm_state(cfg, tree)
+
+
+def opt_state_from_jax(model: torch.nn.Module, opt_state: Mapping) -> Dict:
+    """The reference's AdamW state (``repro.optim.adamw.init``'s ``{"m",
+    "v", "step"}``, leaves as numpy arrays) for the port's ``model``: the
+    moments mapped onto its parameter names as :func:`params_from_jax`
+    maps the weights, as float32 tensors on the model's device, and the
+    step as an int32 0-dim tensor (``repro_torch.optim.adamw``'s
+    layout). Raises on a missing, extra or misshapen leaf."""
+    want = dict(model.named_parameters())
+    dev = next(iter(want.values())).device
+    out = {}
+    for key in ("m", "v"):
+        flat = _state(model.cfg, opt_state[key])
+        if set(flat) != set(want):
+            raise KeyError(f"opt_state[{key!r}] differs from the model: "
+                           f"missing {sorted(set(want) - set(flat))}, extra "
+                           f"{sorted(set(flat) - set(want))}")
+        out[key] = {}
+        for name, p in want.items():
+            t = tensor_from_numpy(flat[name])
+            if t.shape != p.shape or t.dtype != torch.float32:
+                raise ValueError(f"{key}.{name}: got {tuple(t.shape)} "
+                                 f"{t.dtype}, want {tuple(p.shape)} float32")
+            out[key][name] = t.to(dev)
+    out["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
 
 
 def _lm_state(cfg, params: Mapping) -> Dict[str, np.ndarray]:

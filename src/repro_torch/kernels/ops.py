@@ -27,7 +27,17 @@ HOP_N_MAX = HOP_INF // 2
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """GQA attention, q (B, Hq, Sq, hd), k and v (B, Hkv, Skv, hd), with
-    the causal mask aligned top-left (``qpos >= kpos``)."""
+    the causal mask aligned top-left (``qpos >= kpos``). Forward only: it
+    raises under autograd when q, k or v requires grad, on every device,
+    since the CUDA kernel's output has no ``grad_fn`` and would silently
+    drop attention's gradient (training attention is
+    ``models.layers.blocked_attention``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad()"
+            " or inference_mode(); training attention is "
+            "repro_torch.models.layers.blocked_attention")
     if q.device.type == "cuda":
         return _fa.flash_attention(q, k, v, causal)
     if q.device.type == "cpu":

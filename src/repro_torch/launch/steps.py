@@ -1,0 +1,36 @@
+"""Step functions of the launchers: train_step, prefill_step, serve_step.
+
+Counterpart of ``repro.launch.steps``. The reference returns functions
+for ``jax.jit``; these run eagerly, and the train step updates the model
+and optimizer state in place (``train.loop.make_step``).
+"""
+from __future__ import annotations
+
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.train.loop import TrainConfig, make_step
+
+
+def make_train_step(cfg, opt_cfg: adamw.OptConfig = None):
+    """``train_step(model, opt_state, batch)``; 4 microbatches when the
+    config sets ``opt_microbatch4``."""
+    opt_cfg = opt_cfg or adamw.OptConfig()
+    mb = 4 if getattr(cfg, "opt_microbatch4", False) else 1
+    return make_step(cfg, opt_cfg, TrainConfig(microbatches=mb))
+
+
+def make_prefill_step(cfg):
+    def prefill_step(params, batch):
+        logits, caches = M.prefill_fn(cfg, params, batch)
+        return logits, caches
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """One new token against a seq_len-deep cache (decode shapes)."""
+    def serve_step(params, token, pos, caches):
+        logits, caches = M.decode_fn(cfg, params, caches, token, pos)
+        return logits, caches
+
+    return serve_step

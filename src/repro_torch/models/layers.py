@@ -5,9 +5,11 @@ Counterpart of ``repro.models.layers``. The plain
 functions take the reference's layouts ((B, S, H, hd) activations) and
 dtypes; the modules hold the parameters under the reference's names and
 in its (in, out) layout, so ``x @ w`` reads the same as there and the
-converter copies arrays one for one. Full-sequence attention goes through
+converter copies arrays one for one. Prefill attention goes through
 :func:`repro_torch.kernels.ops.flash_attention` (the hand-written kernel
-on CUDA, its plain version on the CPU); one-step decode attention is
+on CUDA, its plain version on the CPU), which has no backward; training
+attention is :func:`blocked_attention`, the reference's jnp blocked
+softmax as torch ops under autograd; one-step decode attention is
 plain torch, as the reference has no kernel there. The MoE dispatch and
 the SSD are plain torch too, as they are XLA in the reference. The
 reference's sharding constraints (``wsc``) are dropped: they do nothing
@@ -104,6 +106,51 @@ def _scale_in(hd: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / math.sqrt(hd), dtype=dtype))
 
 
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, q_offset: int = 0, kv_len=None,
+                      block: int = 1024) -> torch.Tensor:
+    """The reference's ``gqa_attention``: GQA with an online softmax over
+    kv blocks, as plain torch ops that autograd differentiates (training
+    runs this; prefill takes the flash kernel). q (B, Sq, Hq, hd), k and v
+    (B, Skv, Hkv, hd); ``q_offset`` is q[0]'s absolute position, ``kv_len``
+    the number of valid kv positions (an int or a 0-dim tensor). The
+    block halves until it divides Skv. Rounds where the reference does:
+    ``q * scale`` in q's dtype, P in v's dtype before P.V, both products
+    accumulated in f32, o, m and l carried in f32, l floored at 1e-30."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    qg = (q * _scale_in(hd, q.dtype)).reshape(B, Sq, Hkv, rep, hd).float()
+    blk = min(block, Skv)
+    while Skv % blk:
+        blk //= 2
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    valid = Skv if kv_len is None else kv_len
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Sq, Hkv, rep, hd), **f32)
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, **f32)
+    l = torch.zeros((B, Hkv, rep, Sq), **f32)
+    for start in range(0, Skv, blk):
+        kb = k[:, start:start + blk].to(q.dtype).float()
+        vb = v[:, start:start + blk]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb)
+        kpos = start + torch.arange(blk, device=q.device)
+        mask = kpos[None, :] < valid
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype).float(),
+                          vb.float())
+        o = o * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    o = o / torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
+    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int) -> torch.Tensor:
     """One-step decode. q: (B, 1, Hq, hd); caches (B, S, Hkv, hd); cache
@@ -165,6 +212,16 @@ class Attention(nn.Module):
         o = gqa_attention(q, k, v, causal=self.cfg.causal)
         B, S, _ = x.shape
         return o.reshape(B, S, -1) @ self.wo, (k, v)
+
+    def blocked(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """Full-sequence training attention through
+        :func:`blocked_attention` (kv blocks of ``cfg.attn_block``)."""
+        q, k, v = self.qkv(x, positions)
+        o = blocked_attention(q, k, v, causal=self.cfg.causal,
+                              block=self.cfg.attn_block)
+        B, S, _ = x.shape
+        return o.reshape(B, S, -1) @ self.wo
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, pos: int, positions: torch.Tensor

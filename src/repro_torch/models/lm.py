@@ -1,5 +1,5 @@
 """Decoder-only LM of the dense, MoE, SSM and hybrid families: init,
-forward, prefill and decode.
+the training forward and loss, prefill and decode.
 
 Counterpart of ``repro.models.lm``. The layers are one ``nn.ModuleList``
 ``blocks`` in absolute layer order, run by a Python loop; each is a
@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -90,8 +91,19 @@ class Block(nn.Module):
         return x + self.mlp(h), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """Full sequence: (x, aux or None, this layer's cache: {"k", "v"}
-        (B, S, Hkv, hd) or {"conv", "ssm"})."""
+        """Full sequence for training: (x, aux or None), no cache;
+        attention through ``layers.blocked_attention``."""
+        h = L.apply_norm(self.cfg.norm, x, self.ln1)
+        if self.mixer == "attn":
+            a = self.attn.blocked(h, positions)
+        else:
+            a = L.mamba_block(self.mamba, h, self.cfg)
+        return self._ffn(x + a)
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor):
+        """Full sequence for prefill: (x, aux or None, this layer's cache:
+        {"k", "v"} (B, S, Hkv, hd) or {"conv", "ssm"}); attention through
+        the flash kernel."""
         h = L.apply_norm(self.cfg.norm, x, self.ln1)
         if self.mixer == "attn":
             a, (k, v) = self.attn(h, positions)
@@ -158,17 +170,46 @@ def _embed(model: DecoderLM, tokens: torch.Tensor,
 
 def forward(model: DecoderLM, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None):
-    """tokens (B, S) -> (logits (B, S, V), the MoE layers' aux loss summed
-    in float32)."""
+    """The training forward: tokens (B, S) -> (logits (B, S, V), the MoE
+    layers' aux loss summed in float32). Attention runs
+    ``layers.blocked_attention``, which autograd differentiates; with
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward, as the reference's ``scan_blocks(remat=
+    cfg.remat)``."""
     x = _embed(model, tokens, extra_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in model.blocks:
-        x, aux, _ = blk(x, positions)
+        if model.cfg.remat:
+            x, aux = checkpoint(blk, x, positions, use_reentrant=False)
+        else:
+            x, aux = blk(x, positions)
         if aux is not None:
             aux_total = aux_total + aux
     return L.apply_norm(model.cfg.norm, x, model.ln_f) @ model.head(), \
         aux_total
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_weight: float = 0.0) -> torch.Tensor:
+    """Mean token cross entropy in float32: ``logsumexp`` less the label's
+    logit, plus ``z_weight`` times the mean squared ``logsumexp``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_weight:
+        loss = loss + z_weight * (lse ** 2).mean()
+    return loss
+
+
+def loss_fn(model: DecoderLM, batch, aux_weight: float = 0.01
+            ) -> torch.Tensor:
+    """Cross entropy of ``batch["tokens"]`` against ``batch["labels"]``
+    (``batch["patches"]`` the vision prefix, if any) plus ``aux_weight``
+    times the aux loss."""
+    logits, aux = forward(model, batch["tokens"], batch.get("patches"))
+    return cross_entropy(logits, batch["labels"]) + aux_weight * aux
 
 
 def empty_cache(cfg, B: int, S: int, device=None) -> Cache:
@@ -207,7 +248,7 @@ def prefill(model: DecoderLM, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)
     per: Dict[str, List[torch.Tensor]] = {}
     for blk in model.blocks:
-        x, _, c = blk(x, positions)
+        x, _, c = blk.prefill(x, positions)
         for name, t in c.items():
             per.setdefault(name, []).append(t)
     caches = {name: torch.stack(ts) for name, ts in per.items()}

@@ -1,4 +1,4 @@
-"""Family-dispatching model facade: init / prefill / decode / cache.
+"""Family-dispatching model facade: init / loss / prefill / decode / cache.
 
 Counterpart of ``repro.models.model``. ``params`` is the model module: a
 :class:`~repro_torch.models.lm.DecoderLM` for the dense, MoE, SSM and
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.models import lm, seq2seq
 
 
@@ -16,6 +18,17 @@ def init_params(cfg, seed: int = 0, device=None):
     if cfg.family == "encdec":
         return seq2seq.init_params(cfg, seed, device)
     return lm.init_params(cfg, seed, device)
+
+
+def loss_fn(cfg, params, batch) -> torch.Tensor:
+    """The training loss of ``batch`` (``tokens``, ``labels`` and, for a
+    vision arch, ``patches``). Only the dense family trains in the port
+    so far."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training of the {cfg.family} family is not ported "
+            "yet (ROADMAP item 10b); the dense family trains")
+    return lm.loss_fn(params, batch)
 
 
 def prefill_fn(cfg, params, batch, cache_len=None):
