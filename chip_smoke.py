@@ -23,8 +23,12 @@ served twice with equal token streams, and its CPU-vs-CUDA case) and
 training (qwen2.5-3b at its published widths through ``Trainer``: 8
 steps with an async checkpoint, then one step of 4096 tokens; the smoke
 model's 3 steps on CUDA against the CPU, and a run resumed from a
-checkpoint against a straight one, bit for bit; the flash kernel must
-not launch) -- checks that the simulator's, the LP solver's and the
+checkpoint against a straight one, bit for bit; then mamba2-2.7b,
+seamless-m4t-medium and deepseek-moe-16b cut to 6 of its 28 layers, 8
+steps each at their published widths, and one forward and backward of
+jamba cut to 8 of its 32 layers; those four archs' smoke models on CUDA
+against the CPU and resumed; the SSD's gradient at chunk 128; the flash
+kernel must not launch) -- checks that the simulator's, the LP solver's and the
 model's CUDA and CPU runs agree, and prints one JSON line per result.
 
     python3 chip_smoke.py
@@ -98,6 +102,31 @@ TRAIN_LONG_S = 4096
 # the CPU tests' tolerances for 3 steps of the port against the reference
 # (tests/test_torch_train.py: losses rtol 1e-2, PARAM_REL over all leaves)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_REL = 1e-2, 0.0077
+# the other families' training (ROADMAP item 10b) at their published
+# widths with the launcher's defaults, each on its own: mamba2-2.7b and
+# seamless-m4t-medium whole; deepseek-moe-16b cut to 6 of its 28 layers
+# (the dense first layer and 5 MoE layers: ~3.4e9 parameters, ~48 GB of
+# training state; all 28 would need ~230 GB); jamba cut to one
+# super-block (8 of 32 layers, ~13.3e9 parameters), which runs one
+# forward and backward without the optimizer (AdamW's f32 moments would
+# bring it to ~160 GB; bf16 parameters and gradients are ~53 GB)
+TRAIN_FAMILY_ARCHS = ("mamba2-2.7b", "seamless-m4t-medium",
+                      "deepseek-moe-16b", "jamba-v0.1-52b")
+TRAIN_FAMILY_LAYERS = {"deepseek-moe-16b": 6, "jamba-v0.1-52b": 8}
+TRAIN_GRAD_ONLY = ("jamba-v0.1-52b",)
+# the CPU tests' bounds on the parameters after 3 steps of each arch
+# against the reference (PARAM_REL of tests/test_torch_train_families.py
+# and tests/test_torch_train_seq2seq.py); losses within TRAIN_LOSS_RTOL
+TRAIN_FAMILY_PARAM_REL = {"deepseek-moe-16b": 0.0046, "mamba2-2.7b": 0.0071,
+                          "jamba-v0.1-52b": 0.0087,
+                          "seamless-m4t-medium": 0.0067}
+# a router probability gap under which two lowerings may order two experts
+# differently (tests/torch_parity.py NEAR_TIE)
+NEAR_TIE = 1e-2
+# the SSD's gradient at mamba2's head shapes and its default chunk of 128,
+# CUDA against the CPU, per input (tests: 1e-5 against the reference's
+# sequential oracle)
+SSD_GRAD_REL = 1e-5
 
 
 def check(cond, msg):
@@ -744,11 +773,11 @@ def phase_serve_cpu_vs_gpu(PM, cfg, dev="cuda"):
          logit_abs_max=float(outs[0][0].abs().max()))
 
 
-def family_config(get_config, arch):
-    """An arch's published config, cut in depth where FAMILY_LAYERS says."""
+def family_config(get_config, arch, cuts=FAMILY_LAYERS):
+    """An arch's published config, cut in depth where ``cuts`` says."""
     cfg = get_config(arch).model
-    if arch in FAMILY_LAYERS:
-        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    if arch in cuts:
+        cfg = dataclasses.replace(cfg, n_layers=cuts[arch])
     return cfg
 
 
@@ -771,6 +800,26 @@ def prefill_batch(cfg, prompt, dev, frames=None):
         frames = torch.zeros((1, tokens.shape[1], cfg.d_model),
                              dtype=torch.bfloat16, device=dev)
     return {"tokens": tokens, "frames": frames}
+
+
+def _route_log(L, log, follow=None):
+    """Patch ``L.moe_route`` to log each call's experts (T, K) sorted,
+    and its router probabilities, on the host; with ``follow`` (an
+    earlier log) the i-th call takes the i-th logged experts instead,
+    through ``L.moe_assign`` with its own probabilities. Returns the
+    original."""
+    orig = L.moe_route
+    calls = iter(follow or ())
+
+    def route(p, xf, cfg, C):
+        r = orig(p, xf, cfg, C)
+        if follow is not None:
+            r = L.moe_assign(r.probs, next(calls)[0].to(r.eidx.device), C)
+        log.append((r.eidx.sort(dim=1).values.cpu(),
+                    r.probs.detach().float().cpu()))
+        return r
+    L.moe_route = route
+    return orig
 
 
 def phase_serve_family(fa, PM, L, Request, Server, cfg, dev="cuda"):
@@ -925,17 +974,11 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
         (1, 100, cfg2.d_model)).astype(np.float32)).to(torch.bfloat16)
     S = 100
     routes = {}
-    orig_route = L.moe_route
     outs = []
     with torch.inference_mode():
         for model, d in ((cpu, "cpu"), (gpu, dev)):
-            log = routes[d] = []
-
-            def rec(*a, **kw):
-                r = orig_route(*a, **kw)
-                log.append(r.eidx.sort(dim=1).values.cpu())
-                return r
-            L.moe_route = rec
+            routes[d] = []
+            orig_route = _route_log(L, routes[d])
             try:
                 t = toks.to(d)
                 logits, caches = PM.prefill_fn(
@@ -951,9 +994,8 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
                 L.moe_route = orig_route
             outs.append([x.float().cpu() for x in steps])
     other = [{"call": i, "tokens": torch.nonzero((a != b).any(1)).flatten()
-              .tolist()} for i, (a, b) in enumerate(zip(routes["cpu"],
-                                                        routes[dev]))
-             if not torch.equal(a, b)]
+              .tolist()} for i, ((a, _), (b, _)) in enumerate(zip(
+                  routes["cpu"], routes[dev])) if not torch.equal(a, b)]
     errs = [float((c - g).abs().max()) for c, g in zip(*outs)]
     agree = [int(c.argmax()) == int(g.argmax()) for c, g in zip(*outs)]
     emit(phase="serve_family_cpu_vs_gpu", arch=cfg.name,
@@ -978,26 +1020,34 @@ def train_flops_per_token(cfg, n_params: int, S: int) -> float:
     """Model flops of one token of a training step, forward and backward
     (remat's recompute not counted): 6 N for the weights' matmuls, where
     N is every parameter but an untied embedding (a lookup; a tied one is
-    the head's V x D matmul and counts once), plus 12 L Hq hd S for the
-    attention scores and P.V over all S positions (the blocked attention
-    computes every block, the masked ones too)."""
-    N = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
-    return 6.0 * N + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * S
+    the head's V x D matmul and counts once) and an MoE's unchosen
+    experts (``param_count - active_param_count``: the top_k experts of
+    each token count), plus 12 Hq hd S for the attention scores and P.V
+    over all S positions in each attention layer (encoder-decoder: the
+    encoder's, the decoder's and its cross attention; the blocked
+    attention computes every block, the masked ones too). A Mamba
+    layer's SSD counts only through its projections."""
+    N = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model) \
+        - (cfg.param_count() - cfg.active_param_count())
+    return 6.0 * N + 12.0 * attention_layers(cfg) * cfg.n_heads * \
+        cfg.head_dim * S
 
 
 def train_config(cfg, steps, ckpt_dir, lr, warmup, total, batch, seq, dev,
                  log_every=100):
     """A ``Trainer`` of ``cfg`` from seed 0 for ``steps`` steps of a
     schedule of ``total``, checkpointing at the last, as
-    ``launch/train.py`` builds it."""
+    ``launch/train.py`` builds it (with its ``extra_inputs``)."""
     from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.train import extra_inputs
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.train.loop import TrainConfig, Trainer
     return Trainer(cfg, DataConfig(cfg.vocab, seq, batch),
                    OptConfig(lr=lr, total_steps=total, warmup_steps=warmup),
                    TrainConfig(steps=steps, ckpt_dir=str(ckpt_dir),
                                ckpt_every=steps, log_every=log_every),
-                   seed=0, device=dev)
+                   seed=0, extra_batch=extra_inputs(cfg, batch, seq, dev),
+                   device=dev)
 
 
 def phase_train_full(fa, cfg, bf16_flops_per_s, dev="cuda"):
@@ -1177,11 +1227,12 @@ def phase_train_cpu_vs_gpu(get_config, dev="cuda"):
           f"CPU and CUDA parameters differ by {param_rel} after 3 steps")
 
 
-def phase_train_resume(get_config, dev="cuda"):
-    """The smoke config on the card: 4 steps straight, again, and 2
-    steps, a checkpoint, a new ``Trainer`` and 2 more. Parameters,
+def phase_train_resume(get_config, dev="cuda", arch=TRAIN_ARCH,
+                       phase="train_resume"):
+    """``arch``'s smoke config on the card: 4 steps straight, again, and
+    2 steps, a checkpoint, a new ``Trainer`` and 2 more. Parameters,
     moments and step equal bit for bit in all three, losses too."""
-    cfg = get_config(TRAIN_ARCH).smoke_model()
+    cfg = get_config(arch).smoke_model()
 
     def snapshot(tr):
         out = [p.detach().clone() for p in tr.model.parameters()]
@@ -1206,13 +1257,243 @@ def phase_train_resume(get_config, dev="cuda"):
         runs.append(snapshot(second))
     same = [all(torch.equal(x, y) for x, y in zip(runs[0], r))
             for r in runs[1:]]
-    emit(phase="train_resume", arch=cfg.name, cut="smoke_model", steps=4,
+    emit(phase=phase, arch=cfg.name, cut="smoke_model", steps=4,
          resumed_from=resumed_from, losses=losses, leaves=len(runs[0]),
          rerun_equal=same[0], resume_equal=same[1],
          losses_equal=losses[0] == losses[1] == losses[2])
     check(resumed_from == 2, f"resumed from step {resumed_from}, not 2")
     check(all(same), f"runs differ (rerun, resume): {same}")
     check(losses[0] == losses[1] == losses[2], f"losses differ: {losses}")
+
+
+def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
+    """Another family's training at full width (TRAIN_FAMILY_LAYERS'
+    cuts): ``Trainer.run`` with the launcher's defaults for TRAIN_STEPS
+    steps from seed 0, weights made on the card, its checkpoint saves
+    turned off (resume is held at smoke width); then one more step under
+    the profiler. An arch of TRAIN_GRAD_ONLY instead takes one forward
+    and backward of ``model.loss_fn`` through ``torch.autograd.grad``,
+    timed, then one under the profiler, and no optimizer. Returns the
+    flash launches."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch.train import extra_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    grad_only = cfg.name in TRAIN_GRAD_ONLY
+    fa.launches = 0                                  # this arch's training
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as d:
+        if grad_only:
+            model = PM.init_params(cfg, seed=0, device=dev)
+            model.requires_grad_(True)
+        else:
+            tr = train_config(cfg, TRAIN_STEPS, d, TRAIN_LR,
+                              max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
+                              TRAIN_BATCH, TRAIN_SEQ, dev, log_every=1)
+            model = tr.model
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in model.parameters())
+        if grad_only:
+            params = list(model.parameters())
+            batch = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ,
+                                           TRAIN_BATCH)).torch_batch(0, dev)
+
+            def step():
+                loss = PM.loss_fn(cfg, model, batch)
+                grads = torch.autograd.grad(loss, params)
+                finite = torch.stack([torch.isfinite(g).all()
+                                      for g in grads]).all()
+                return loss.detach(), finite
+            t0 = time.perf_counter()
+            loss, finite = step()
+            losses, finite = [float(loss)], bool(finite)
+            step_times = [time.perf_counter() - t0]
+            norms, saves = [], []
+            prof = busy_share(step)
+        else:
+            norms, saves, step_fn = [], [], tr.step_fn
+
+            def recorded(*a):
+                stats = step_fn(*a)
+                norms.append(float(stats["grad_norm"]))
+                return stats
+            tr.step_fn = recorded
+            tr.ckpt.save = lambda step, *a, **kw: saves.append(step)
+            out = tr.run()
+            losses, step_times = out["losses"], out["step_times"]
+            finite = all(math.isfinite(x) for x in losses + norms)
+            extra = extra_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+            batch = tr.data.torch_batch(
+                TRAIN_STEPS, dev, extra(TRAIN_STEPS) if extra else None)
+            prof = busy_share(lambda: step_fn(tr.model, tr.opt_state, batch))
+    launches = fa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(step_times[1:]) if len(step_times) > 1 \
+        else prof["wall_s"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fpt = train_flops_per_token(cfg, n_params, TRAIN_SEQ)
+    emit(phase="train_family_full", arch=cfg.name, family=cfg.family,
+         n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+         dec_layers=cfg.dec_layers, d_model=cfg.d_model, n_params=n_params,
+         optimizer=not grad_only, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=len(losses), lr=TRAIN_LR, warmup=max(TRAIN_STEPS // 10, 5),
+         remat=cfg.remat, losses=losses, grad_norms=norms,
+         step_times_s=step_times, median_step_s_after_first=step_s,
+         tokens_per_s=tokens / step_s, flops_per_token=fpt,
+         flops_formula="6 N + 12 L_attn Hq hd S a token (N parameters but "
+                       "an untied embedding and the unchosen experts; "
+                       "L_attn attention layers), remat's recompute and "
+                       "the SSD's own products not counted",
+         model_tflops_per_s=fpt * tokens / step_s / 1e12,
+         bf16_peak_share=fpt * tokens / step_s / bf16_flops_per_s,
+         init_s=init_s, resident_gb_before=resident_gb, state_gb=state_gb,
+         max_memory_gb=peak_gb, flash_launches=launches,
+         checkpoint_saves_skipped=saves, kernels_per_step=prof["kernels"],
+         busy_share=prof["busy_share"], profiled_step_s=prof["wall_s"],
+         device_busy_s=prof["device_busy_s"], all_finite=finite)
+    check(finite, f"{cfg.name}: non-finite loss, grad norm or gradient: "
+          f"{losses} {norms}")
+    if not grad_only:
+        check(len(losses) == TRAIN_STEPS,
+              f"{cfg.name}: trained {len(losses)} of {TRAIN_STEPS} steps")
+        check(losses[-1] < losses[0],
+              f"{cfg.name}: the loss did not fall: {losses}")
+    check(launches == 0, f"{cfg.name}: training launched the flash kernel "
+          f"{launches} times")
+    return launches
+
+
+def phase_train_family_cpu_vs_gpu(get_config, L, dev="cuda"):
+    """Each family arch's smoke config (seed 0, made on the CPU) trained 3
+    steps on the CPU and on CUDA with ``make_step`` on identical batches
+    (B 4, S 32, lr 1e-3, warmup 1; frames from ``extra_inputs``): losses
+    within TRAIN_LOSS_RTOL and the parameters within the arch's
+    TRAIN_FAMILY_PARAM_REL, the CPU tests' bounds against the reference.
+    An MoE arch logs every routing call on both devices; a parameter gap
+    over the bound passes only where the first call routed otherwise
+    does so at near ties of the CPU's probabilities (gap < NEAR_TIE),
+    and the run that follows the CPU's experts on CUDA (always printed)
+    is within it."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import model as PM
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainConfig, make_step
+    oc = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).smoke_model()
+        init = PM.init_params(cfg, seed=0, device="cpu")
+        data = SyntheticLM(DataConfig(cfg.vocab, 32, 4))
+
+        def train(d, log, follow=None):
+            model = copy.deepcopy(init).to(d).requires_grad_(True)
+            extra = extra_inputs(cfg, 4, 32, d)
+            step = make_step(cfg, oc, TrainConfig())
+            state = adamw.init(dict(model.named_parameters()))
+            orig = _route_log(L, log, follow)
+            try:
+                losses = [float(step(model, state, data.torch_batch(
+                    s, d, extra(s) if extra else None))["loss"])
+                    for s in range(3)]
+            finally:
+                L.moe_route = orig
+            return model, losses
+
+        def gaps(model, losses):
+            num = den = 0.0
+            for (_, c), (_, g) in zip(cpu.named_parameters(),
+                                      model.named_parameters()):
+                c, g = c.detach().float(), g.detach().float().cpu()
+                num += float(((g - c) ** 2).sum())
+                den += float((c ** 2).sum())
+            return ([abs(a - b) / abs(a) for a, b in zip(cpu_losses,
+                                                        losses)],
+                    math.sqrt(num / den))
+        logs = {"cpu": [], dev: [], "follow": []}
+        cpu, cpu_losses = train("cpu", logs["cpu"])
+        gpu, gpu_losses = train(dev, logs[dev])
+        loss_rel, param_rel = gaps(gpu, gpu_losses)
+        first = None
+        for i, ((a, probs), (b, _)) in enumerate(zip(logs["cpu"],
+                                                     logs[dev])):
+            if not torch.equal(a, b):
+                top = probs.sort(dim=1, descending=True).values
+                gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+                toks = torch.nonzero((a != b).any(1)).flatten()
+                first = {"call": i, "tokens": toks.tolist(),
+                         "prob_gap": gap[toks].tolist(),
+                         "near_tie": bool((gap[toks] < NEAR_TIE).all())}
+                break
+        followed = None
+        if cfg.n_experts:
+            fmodel, flosses = train(dev, logs["follow"], logs["cpu"])
+            followed = dict(zip(("loss_rel_err", "param_rel_err"),
+                                gaps(fmodel, flosses)))
+        bound = TRAIN_FAMILY_PARAM_REL[arch]
+        emit(phase="train_family_cpu_vs_gpu", arch=arch, cut="smoke_model",
+             steps=3, losses_cpu=cpu_losses, losses_cuda=gpu_losses,
+             loss_rel_err=loss_rel, param_rel_err=param_rel,
+             moe_calls=len(logs["cpu"]), first_routing_difference=first,
+             following_cpu_experts=followed, loss_rtol=TRAIN_LOSS_RTOL,
+             param_rel_bound=bound)
+        check(len(logs["cpu"]) == len(logs[dev]),
+              f"{arch}: {len(logs['cpu'])} MoE calls on the CPU, "
+              f"{len(logs[dev])} on CUDA")
+        if followed is not None:
+            check(followed["param_rel_err"] <= bound and
+                  max(followed["loss_rel_err"]) <= TRAIN_LOSS_RTOL,
+                  f"{arch}: following the CPU's experts, CUDA is "
+                  f"{followed} from the CPU")
+        if param_rel > bound or max(loss_rel) > TRAIN_LOSS_RTOL:
+            check(first is not None and first["near_tie"],
+                  f"{arch}: CPU and CUDA differ by {param_rel} (losses "
+                  f"{loss_rel}) without a routing near tie: {first}")
+
+
+def phase_ssd_grad_128(L, dev="cuda"):
+    """The SSD alone at mamba2's head shapes (B 1, S 128, H 80, P 64,
+    one group of N 128) and its default chunk of 128, dt in the init's
+    range [0.001, 0.1] and A from -1 to -16: the gradient of a random
+    projection of y and the final state on CUDA, every input's finite
+    and within SSD_GRAD_REL of the CPU's; and the count of non-finite
+    entries of the unmasked ``exp(ddec)`` form's gradient (caveat R9)."""
+    g = torch.Generator().manual_seed(0)
+    S, H, P, N = 128, 80, 64, 128
+    ins = [torch.randn((1, S, H, P), generator=g),
+           torch.rand((1, S, H), generator=g) * 0.099 + 0.001,
+           -torch.linspace(1.0, 16.0, H),
+           torch.randn((1, S, 1, N), generator=g),
+           torch.randn((1, S, 1, N), generator=g)]
+    cts = [torch.randn((1, S, H, P), generator=g),
+           torch.randn((1, H, P, N), generator=g)]
+
+    def grads(d):
+        ts = [t.to(d).requires_grad_(True) for t in ins]
+        y, st = L.ssd_chunked(*ts, 128)
+        loss = (y * cts[0].to(d)).sum() + (st * cts[1].to(d)).sum()
+        return [x.cpu() for x in torch.autograd.grad(loss, ts)]
+    cpu, gpu = grads("cpu"), grads(dev)
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(gpu, cpu)]
+    finite = all(bool(torch.isfinite(x).all()) for x in gpu)
+    masked = L._intra_decay
+    L._intra_decay = lambda ddec, tri: torch.exp(ddec)
+    try:
+        unmasked_bad = sum(int((~torch.isfinite(x)).sum())
+                           for x in grads(dev))
+    finally:
+        L._intra_decay = masked
+    emit(phase="ssd_grad_128", shape=[1, S, H, P, N], chunk=128,
+         inputs=["xh", "dt", "A", "Bm", "Cm"], grad_rel_err_cuda_vs_cpu=rel,
+         bound=SSD_GRAD_REL, finite=finite,
+         unmasked_nonfinite_grad_entries=unmasked_bad)
+    check(finite, "the SSD's gradient at chunk 128 is not finite on CUDA")
+    check(max(rel) <= SSD_GRAD_REL,
+          f"the SSD's CUDA gradient is {rel} from the CPU's")
 
 
 def drive(name, topo, PNS, route_pod):
@@ -2148,8 +2429,26 @@ def main() -> int:
     phase_train_cpu_vs_gpu(get_config)
     phase_train_resume(get_config)
     t.append(time.perf_counter())
+
+    # ---- the other families' training, each counted from zero, must be 0 --
+    family_train_launches = {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        family_train_launches[arch] = phase_train_family_full(
+            fa, PM, family_config(get_config, arch, TRAIN_FAMILY_LAYERS),
+            bf16_flops_per_s)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+    phase_train_family_cpu_vs_gpu(get_config, L)
+    for arch in FAMILY_ARCHS:
+        phase_train_resume(get_config, arch=arch,
+                           phase="train_family_resume")
+    phase_ssd_grad_128(L)
+    t.append(time.perf_counter())
     emit(phase="train_seconds", phase_s=dict(zip(
-        ("train_full", "train_long", "cpu_vs_gpu+resume"),
+        ("train_full", "train_long", "cpu_vs_gpu+resume")
+        + tuple(f"family_full {a}" for a in TRAIN_FAMILY_ARCHS)
+        + ("family cpu_vs_gpu+resume+ssd_grad_128",),
         np.diff(t).tolist())), seconds=t[-1] - t[0])
 
     def minplus_entry(path, name, launches, err):
@@ -2183,6 +2482,7 @@ def main() -> int:
         "launches_prefill_long": long_launches,
         "launches_serve_family": family_launches,
         "launches_training": train_launches,
+        "launches_training_families": family_train_launches,
         "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
         "max_abs_err": flash_err[torch.bfloat16],
         "max_abs_err_f32": flash_err[torch.float32],

@@ -239,16 +239,21 @@ class Attention(nn.Module):
 
 
 def cross_attention(p: Attention, x: torch.Tensor,
-                    enc_kv: Tuple[torch.Tensor, torch.Tensor], cfg
-                    ) -> torch.Tensor:
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor], cfg,
+                    blocked: bool = False) -> torch.Tensor:
     """Encoder-decoder cross attention: q from ``x`` (B, S, D) without
-    RoPE, non-causal over the encoder's k and v (B, S_enc, Hkv, hd)."""
+    RoPE, non-causal over the encoder's k and v (B, S_enc, Hkv, hd);
+    through the flash kernel, or with ``blocked`` (training) through
+    :func:`blocked_attention` in kv blocks of ``cfg.attn_block``."""
     B, S, _ = x.shape
     q = (x @ p.wq).view(B, S, cfg.n_heads, cfg.head_dim)
     if cfg.qkv_bias:
         q = q + p.bq.view(cfg.n_heads, cfg.head_dim)
     k, v = enc_kv
-    o = gqa_attention(q, k, v, causal=False)
+    if blocked:
+        o = blocked_attention(q, k, v, causal=False, block=cfg.attn_block)
+    else:
+        o = gqa_attention(q, k, v, causal=False)
     return o.reshape(B, S, -1) @ p.wo
 
 
@@ -354,15 +359,49 @@ def moe_assign(probs: torch.Tensor, eidx: torch.Tensor, C: int) -> Route:
                  inv.view(T, K).sort(dim=1).values)
 
 
+def _sum_by_token(rows: torch.Tensor, spos: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Each token's K rows of ``rows`` (T*K, D) float32, in sorted entry
+    order, read through ``spos`` (T, K) and summed in ascending expert
+    order from 0.0 in float32, then rounded to ``dtype``."""
+    y = torch.zeros((spos.shape[0], rows.shape[1]), dtype=torch.float32,
+                    device=rows.device)
+    for k in range(spos.shape[1]):
+        y = y + rows[spos[:, k]]
+    return y.to(dtype)
+
+
+class _Dispatch(torch.autograd.Function):
+    """:func:`moe_dispatch` with a backward that sums in a fixed order.
+    Autograd's own backward of ``xf[r.st]`` would accumulate each token's
+    ``top_k`` gradient rows by an ``index_put_`` whose order on CUDA is
+    not fixed; this one gives each token the sum of its entries' rows of
+    the buffer's gradient (a dropped entry's is zero) in
+    :func:`moe_combine`'s order, as that combine does with unit gates."""
+
+    @staticmethod
+    def forward(ctx, xf, slot, st, spos, E: int, C: int):
+        ctx.save_for_backward(slot, spos)
+        D = xf.shape[1]
+        flat = xf.new_zeros((E * C + 1, D))
+        flat[slot] = xf[st]
+        return flat[:E * C].view(E, C, D)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, spos = ctx.saved_tensors
+        flat = F.pad(g.reshape(-1, g.shape[-1]), (0, 0, 0, 1))
+        return (_sum_by_token(flat[slot].float(), spos, g.dtype),
+                None, None, None, None, None)
+
+
 def moe_dispatch(xf: torch.Tensor, r: Route, E: int, C: int
                  ) -> torch.Tensor:
     """The (E, C, D) capacity buffer: each kept entry's token row at its
     place, zeros elsewhere. Kept places are distinct, so this is a plain
-    scatter; dropped entries land on a spare row that is cut off."""
-    D = xf.shape[1]
-    flat = xf.new_zeros((E * C + 1, D))
-    flat[r.slot] = xf[r.st]
-    return flat[:E * C].view(E, C, D)
+    scatter; dropped entries land on a spare row that is cut off. Its
+    gradient sums each token's rows in a fixed order (:class:`_Dispatch`)."""
+    return _Dispatch.apply(xf, r.slot, r.st, r.spos, E, C)
 
 
 def moe_experts(p: MoE, buf: torch.Tensor, act: str) -> torch.Tensor:
@@ -379,12 +418,7 @@ def moe_combine(out: torch.Tensor, r: Route) -> torch.Tensor:
     device and in every run."""
     flat = out.reshape(-1, out.shape[-1])
     tok = F.pad(flat, (0, 0, 0, 1))[r.slot] * r.sg[:, None].to(out.dtype)
-    tok = tok.float()
-    y = torch.zeros((r.spos.shape[0], flat.shape[1]), dtype=torch.float32,
-                    device=out.device)
-    for k in range(r.spos.shape[1]):
-        y = y + tok[r.spos[:, k]]
-    return y.to(out.dtype)
+    return _sum_by_token(tok.float(), r.spos, out.dtype)
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg):
@@ -469,6 +503,17 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _intra_decay(ddec: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """``exp(ddec)`` on and below the diagonal (``tri``), 0 above. Above
+    it ``ddec = cs_i - cs_j`` is positive and passes 88 within a chunk of
+    128 at the init's dt and A, so ``exp`` would overflow to inf there:
+    the forward drops those entries either way, but the backward would
+    multiply ``where``'s zero cotangent by inf and give NaN. Masking to
+    -inf first gives 0 there and the same bits below (the reference
+    computes ``exp(ddec)`` unmasked, ROADMAP caveat R9)."""
+    return torch.exp(ddec.masked_fill(~tri, -math.inf))
+
+
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     """Chunked SSD in float32. xh (B, L, H, P), dt (B, L, H), A (H,)
     negative, Bm and Cm (B, L, G, N) -> y (B, L, H, P) and the final state
@@ -498,7 +543,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     cs = dA_cs.permute(0, 1, 3, 2)                           # (b, c, h, q)
     ddec = cs[..., :, None] - cs[..., None, :]
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=xh.device).tril()
-    M = torch.where(tri, scores * torch.exp(ddec), 0.0)
+    M = torch.where(tri, scores * _intra_decay(ddec, tri), 0.0)
     M = M * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
 

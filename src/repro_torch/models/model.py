@@ -22,13 +22,11 @@ def init_params(cfg, seed: int = 0, device=None):
 
 def loss_fn(cfg, params, batch) -> torch.Tensor:
     """The training loss of ``batch`` (``tokens``, ``labels`` and, for a
-    vision arch, ``patches``). Only the dense family trains in the port
-    so far."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training of the {cfg.family} family is not ported "
-            "yet (ROADMAP item 10b); the dense family trains")
-    return lm.loss_fn(params, batch)
+    vision arch, ``patches``; for an encoder-decoder, ``frames``): the
+    cross entropy, plus 0.01 times an MoE model's load-balancing loss."""
+    if cfg.family == "encdec":
+        return seq2seq.loss_fn(params, batch)
+    return lm.loss_fn(params, batch, aux_weight=0.01)
 
 
 def prefill_fn(cfg, params, batch, cache_len=None):

@@ -3,8 +3,11 @@
 Counterpart of ``repro.models.seq2seq``. The encoder takes precomputed
 frame embeddings (B, S_enc, D) and runs non-causal self-attention with
 RoPE; the decoder is a causal LM with cross attention into the encoder's
-states (no RoPE there). Both prefill attentions go through the flash
-kernel. The cache is ``"k"`` and ``"v"`` (L_dec, B, S, Hkv, hd), the
+states (no RoPE there). Prefill's attentions go through the flash
+kernel; the training forward's through ``layers.blocked_attention``
+under autograd, each layer under ``torch.utils.checkpoint`` with
+``cfg.remat``, as the reference's ``scan_blocks(remat=cfg.remat)``. The
+cache is ``"k"`` and ``"v"`` (L_dec, B, S, Hkv, hd), the
 decoder's self-attention, and ``"ek"`` and ``"ev"`` (L_dec, B, S_enc, Hkv,
 hd), each layer's cross-attention keys and values of the encoder states.
 """
@@ -15,10 +18,11 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.lm import Cache, pad_seq
+from repro_torch.models.lm import Cache, cross_entropy, pad_seq
 
 
 class EncBlock(nn.Module):
@@ -72,18 +76,38 @@ def init_params(cfg, seed: int = 0, device=None) -> EncDecLM:
     return L.init_weights_(EncDecLM(cfg, resolve_device(device)), seed)
 
 
-def encode(model: EncDecLM, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16."""
+def _layer(fn, cfg, blocked: bool, *args):
+    """``fn(cfg, *args, blocked)``; in training (``blocked``) with
+    ``cfg.remat`` under ``torch.utils.checkpoint``, recomputed in the
+    backward."""
+    if blocked and cfg.remat:
+        return checkpoint(fn, cfg, *args, blocked, use_reentrant=False)
+    return fn(cfg, *args, blocked)
+
+
+def _enc_layer(cfg, blk: EncBlock, x: torch.Tensor, positions: torch.Tensor,
+               blocked: bool) -> torch.Tensor:
+    """One encoder layer: non-causal self-attention with RoPE through the
+    flash kernel, or with ``blocked`` through ``blocked_attention``."""
+    B, S, _ = x.shape
+    q, k, v = blk.attn.qkv(L.apply_norm(cfg.norm, x, blk.ln1), positions)
+    if blocked:
+        a = L.blocked_attention(q, k, v, causal=False, block=cfg.attn_block)
+    else:
+        a = L.gqa_attention(q, k, v, causal=False)
+    x = x + a.reshape(B, S, -1) @ blk.attn.wo
+    return x + blk.mlp(L.apply_norm(cfg.norm, x, blk.ln2))
+
+
+def encode(model: EncDecLM, frames: torch.Tensor, blocked: bool = False
+           ) -> torch.Tensor:
+    """frames (B, S_enc, D) -> encoder states (B, S_enc, D) bf16; with
+    ``blocked``, the training form (module docstring)."""
     cfg = model.cfg
     x = frames.to(torch.bfloat16)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     for blk in model.enc_blocks:
-        h = L.apply_norm(cfg.norm, x, blk.ln1)
-        q, k, v = blk.attn.qkv(h, positions)
-        a = L.gqa_attention(q, k, v, causal=False)
-        x = x + a.reshape(B, S, -1) @ blk.attn.wo
-        x = x + blk.mlp(L.apply_norm(cfg.norm, x, blk.ln2))
+        x = _layer(_enc_layer, cfg, blocked, blk, x, positions)
     return L.apply_norm(cfg.norm, x, model.enc_ln_f)
 
 
@@ -100,28 +124,45 @@ def _enc_kv(blk: DecBlock, enc_x: torch.Tensor, cfg):
 
 
 def _dec_layer(cfg, blk: DecBlock, x: torch.Tensor, enc_x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, blocked: bool = False):
     """One decoder layer over the full sequence: (x, {"k", "v", "ek",
-    "ev"} of this layer)."""
-    a, (k, v) = blk.attn(L.apply_norm(cfg.norm, x, blk.ln1), positions)
+    "ev"} of this layer), both attentions through the flash kernel; with
+    ``blocked`` through ``blocked_attention``, and no cache (None)."""
+    h = L.apply_norm(cfg.norm, x, blk.ln1)
+    if blocked:
+        a, kv = blk.attn.blocked(h, positions), None
+    else:
+        a, kv = blk.attn(h, positions)
     x = x + a
     ek, ev = _enc_kv(blk, enc_x, cfg)
     x = x + L.cross_attention(blk.xattn, L.apply_norm(cfg.norm, x, blk.ln_x),
-                              (ek, ev), cfg)
+                              (ek, ev), cfg, blocked)
     x = x + blk.mlp(L.apply_norm(cfg.norm, x, blk.ln2))
-    return x, {"k": k, "v": v, "ek": ek, "ev": ev}
+    if blocked:
+        return x, None
+    return x, {"k": kv[0], "v": kv[1], "ek": ek, "ev": ev}
 
 
 def forward(model: EncDecLM, frames: torch.Tensor, tokens: torch.Tensor
             ) -> torch.Tensor:
-    """Teacher-forced decoder logits (B, S, V)."""
+    """The training forward: teacher-forced decoder logits (B, S, V),
+    every attention through ``blocked_attention``, each layer of both
+    stacks under ``torch.utils.checkpoint`` with ``cfg.remat``."""
     cfg = model.cfg
-    enc_x = encode(model, frames)
+    enc_x = encode(model, frames, blocked=True)
     x = F.embedding(tokens, model.emb).to(torch.bfloat16)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for blk in model.dec_blocks:
-        x, _ = _dec_layer(cfg, blk, x, enc_x, positions)
+        x, _ = _layer(_dec_layer, cfg, True, blk, x, enc_x, positions)
     return L.apply_norm(cfg.norm, x, model.ln_f) @ model.lm_head
+
+
+def loss_fn(model: EncDecLM, batch) -> torch.Tensor:
+    """Cross entropy of ``forward(batch["frames"], batch["tokens"])``
+    against ``batch["labels"]``. The reference's ``aux_weight`` is unused
+    there: an encoder-decoder has no aux loss."""
+    logits = forward(model, batch["frames"], batch["tokens"])
+    return cross_entropy(logits, batch["labels"])
 
 
 def prefill(model: EncDecLM, frames: torch.Tensor, tokens: torch.Tensor,

@@ -46,7 +46,8 @@ from repro_torch.configs import registry as preg
 from repro_torch.data import synthetic as PD
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as PSTEPS, train as PTRAIN
-from repro_torch.models import layers as PL, lm as plm, model as PM
+from repro_torch.models import layers as PL, lm as plm, model as PM, \
+    seq2seq as PS2S
 from repro_torch.optim import adamw as PA
 from repro_torch.train import loop as PT
 
@@ -204,12 +205,23 @@ def test_cross_entropy_matches(z_weight):
 
 
 def test_model_loss_dispatch():
-    """Only the dense family trains; the others name ROADMAP item 10b."""
+    """``model.loss_fn`` dispatches as the reference's: a decoder-only
+    family (mamba2 here) to ``lm.loss_fn`` with ``aux_weight`` 0.01, the
+    encoder-decoder to ``seq2seq.loss_fn``; bit for bit."""
     cfg = preg.get_config("mamba2-2.7b").smoke_model()
     model = PM.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="10b"):
-        PM.loss_fn(cfg, model, {k: torch.as_tensor(v)
-                                for k, v in _batch(cfg).items()})
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    with torch.no_grad():
+        assert torch.equal(PM.loss_fn(cfg, model, batch),
+                           plm.loss_fn(model, batch, aux_weight=0.01))
+    cfg = preg.get_config("seamless-m4t-medium").smoke_model()
+    model = PM.init_params(cfg, seed=0, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+    batch["frames"] = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(2, 32, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(PM.loss_fn(cfg, model, batch),
+                           PS2S.loss_fn(model, batch))
 
 
 # --- gradients ------------------------------------------------------------------

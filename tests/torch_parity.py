@@ -108,7 +108,8 @@ def record_port(monkeypatch, log: List[Routing]) -> None:
 
     def rec(p, xf, cfg, C):
         r = orig(p, xf, cfg, C)
-        log.append(_routing(0, 0, r.probs.cpu(), r.st.cpu(), r.se.cpu(),
+        log.append(_routing(0, 0, r.probs.detach().cpu(), r.st.cpu(),
+                            r.se.cpu(),
                             r.keep.cpu()))
         return r
     monkeypatch.setattr(PL, "moe_route", rec)
