@@ -123,6 +123,16 @@ TRAIN_FAMILY_PARAM_REL = {"deepseek-moe-16b": 0.0046, "mamba2-2.7b": 0.0071,
 # a router probability gap under which two lowerings may order two experts
 # differently (tests/torch_parity.py NEAR_TIE)
 NEAR_TIE = 1e-2
+# the data-parallel path (ROADMAP item 10c): a world of one NCCL rank (the
+# card's machine has one GPU); PARALLEL_STEPS of train_full's run again
+# under make_host_mesh(), then deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut
+# with the per-shard MoE dispatch over PARALLEL_SHARDS data shards that
+# the one process holds, beside this run's figures for the same cut
+# through moe_ffn (phase train_family_full)
+PARALLEL_STEPS, PARALLEL_SHARDS = 3, 2
+# one MoE layer's output, CUDA against the CPU (tests/test_torch_moe.py's
+# BF16_LAYER: of the row's largest |y|)
+MOE_LAYER_ROW_REL = 2e-2
 # the SSD's gradient at mamba2's head shapes and its default chunk of 128,
 # CUDA against the CPU, per input (tests: 1e-5 against the reference's
 # sequential oracle)
@@ -1119,7 +1129,7 @@ def phase_train_full(fa, cfg, bf16_flops_per_s, dev="cuda"):
           f"the loss did not fall: {losses}")
     check(launches == 0, f"training launched the flash kernel {launches} "
           "times")
-    return tr, launches
+    return tr, launches, losses
 
 
 def phase_train_long(fa, tr, cfg, bf16_flops_per_s, dev="cuda"):
@@ -1274,7 +1284,7 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
     the profiler. An arch of TRAIN_GRAD_ONLY instead takes one forward
     and backward of ``model.loss_fn`` through ``torch.autograd.grad``,
     timed, then one under the profiler, and no optimizer. Returns the
-    flash launches."""
+    flash launches and the step's figures."""
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.launch.train import extra_inputs
     gc.collect()
@@ -1365,7 +1375,11 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
               f"{cfg.name}: the loss did not fall: {losses}")
     check(launches == 0, f"{cfg.name}: training launched the flash kernel "
           f"{launches} times")
-    return launches
+    return launches, {"median_step_s_after_first": step_s,
+                      "tokens_per_s": tokens / step_s,
+                      "kernels_per_step": prof["kernels"],
+                      "busy_share": prof["busy_share"],
+                      "max_memory_gb": peak_gb}
 
 
 def phase_train_family_cpu_vs_gpu(get_config, L, dev="cuda"):
@@ -2161,6 +2175,211 @@ def phase_workload_determinism(PW, PNS, convert, PipelineConfig, route_pod,
     check(_conserving(got), "workload replay: conservation fails")
 
 
+def phase_parallel(fa, PM, L, get_config, train_losses, bf16_flops_per_s,
+                   moe_ffn_figures=None, dev="cuda"):
+    """The data-parallel path at world size 1 under NCCL (a ``file://``
+    rendezvous in a temporary directory) and ``make_host_mesh()``:
+    (a) qwen2.5-3b at full width trained PARALLEL_STEPS steps with
+    train_full's settings (seed 0, B 4, S 128, lr 3e-4, total 8, warmup
+    5; checkpoints off): the losses must equal train_full's first ones
+    bit for bit, and the int8 compressed all-reduce of one step's
+    gradients must equal ``compress_grads`` bit for bit; (b)
+    deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut with
+    ``opt_moe_local_dispatch`` under a ("data", "model") (2, 1) mesh held
+    by this process (``moe_ffn_local`` over 2 shards), PARALLEL_STEPS
+    steps at B 4, S 128, then one profiled: finite losses and norms, its
+    figures printed beside ``moe_ffn_figures`` (the same cut through
+    ``moe_ffn`` in this run's train_family_full, if it ran); (c) one deepseek MoE layer at published width (seed 0, 4 x 128
+    tokens) through ``moe_ffn_local`` at dp 2 on the CPU and twice on
+    CUDA, forward and backward: the two CUDA runs equal bit for bit; CUDA
+    against the CPU, the first shard routed otherwise does so at near
+    ties only, and following the CPU's experts y is within
+    MOE_LAYER_ROW_REL. The flash kernel must not launch. Returns its
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import api
+    from repro_torch.train.loop import all_reduce_int8, compress_grads
+    t = [time.perf_counter()]
+    fa.launches = 0                                  # the parallel path
+    init_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{init_dir}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        check(mesh.shape == (1, 1) and api.processes() == 1
+              and mesh.device_mesh is not None,
+              f"make_host_mesh() under one NCCL rank: {mesh}")
+        # (a) qwen2.5-3b at full width, world size 1
+        cfg = get_config(TRAIN_ARCH).model
+        gc.collect()
+        torch.cuda.empty_cache()
+        with api.mesh_context(mesh), tempfile.TemporaryDirectory(
+                prefix="chip_smoke_parallel_") as d:
+            tr = train_config(cfg, PARALLEL_STEPS, d, TRAIN_LR,
+                              max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
+                              TRAIN_BATCH, TRAIN_SEQ, dev)
+            tr.ckpt.save = lambda *a, **kw: None
+            out = tr.run()
+            from repro_torch.models import model as M
+            params = dict(tr.model.named_parameters())
+            loss = M.loss_fn(cfg, tr.model,
+                             tr.data.torch_batch(PARALLEL_STEPS, dev))
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            int8_equal = all(torch.equal(
+                all_reduce_int8({n: g}, 1)[n], compress_grads({n: g})[n])
+                for n, g in grads.items())
+        losses = out["losses"]
+        del tr, params, grads, loss
+        t.append(time.perf_counter())
+        want = train_losses[:PARALLEL_STEPS]
+        emit(phase="parallel_world1", arch=cfg.name, backend="nccl",
+             world_size=dist.get_world_size(), mesh=list(mesh.shape),
+             steps=PARALLEL_STEPS, losses=losses, train_full_losses=want,
+             losses_equal=losses == want, step_times_s=out["step_times"],
+             int8_all_reduce_equals_compress_grads=int8_equal,
+             seconds=t[-1] - t[-2])
+        check(losses == want, f"world-1 losses {losses} are not train_full's "
+              f"{want}")
+        check(int8_equal, "the int8 all-reduce at world 1 differs from "
+              "compress_grads")
+
+        # (b) deepseek-moe-16b cut, per-shard dispatch over 2 shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        arch = "deepseek-moe-16b"
+        fcfg = dataclasses.replace(
+            family_config(get_config, arch, TRAIN_FAMILY_LAYERS),
+            opt_moe_local_dispatch=True)
+        shards = api.Mesh(("data", "model"), (PARALLEL_SHARDS, 1))
+        with api.mesh_context(shards), tempfile.TemporaryDirectory(
+                prefix="chip_smoke_parallel_") as d:
+            tr = train_config(fcfg, PARALLEL_STEPS, d, TRAIN_LR,
+                              max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
+                              TRAIN_BATCH, TRAIN_SEQ, dev)
+            tr.ckpt.save = lambda *a, **kw: None
+            norms, step_fn = [], tr.step_fn
+
+            def recorded(*a):
+                stats = step_fn(*a)
+                norms.append(float(stats["grad_norm"]))
+                return stats
+            tr.step_fn = recorded
+            shard_calls = []
+            route = L.moe_route
+            L.moe_route = lambda p, xf, c, C: shard_calls.append(
+                xf.shape[0]) or route(p, xf, c, C)
+            try:
+                out = tr.run()
+            finally:
+                L.moe_route = route
+            batch = tr.data.torch_batch(PARALLEL_STEPS, dev)
+            prof = busy_share(lambda: step_fn(tr.model, tr.opt_state, batch))
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        del tr
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fl = out["losses"]
+        step_s = statistics.median(out["step_times"][1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        fpt = train_flops_per_token(fcfg, n_params, TRAIN_SEQ)
+        t.append(time.perf_counter())
+        emit(phase="parallel_moe_local", arch=arch, n_layers=fcfg.n_layers,
+             d_model=fcfg.d_model, n_params=n_params,
+             mesh=list(shards.shape), shards_held=PARALLEL_SHARDS,
+             tokens_per_route_call=sorted(set(shard_calls)),
+             route_calls=len(shard_calls), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             steps=len(fl), losses=fl, grad_norms=norms,
+             step_times_s=out["step_times"], median_step_s_after_first=step_s,
+             tokens_per_s=tokens / step_s,
+             model_tflops_per_s=fpt * tokens / step_s / 1e12,
+             bf16_peak_share=fpt * tokens / step_s / bf16_flops_per_s,
+             kernels_per_step=prof["kernels"], busy_share=prof["busy_share"],
+             profiled_step_s=prof["wall_s"],
+             device_busy_s=prof["device_busy_s"], max_memory_gb=peak_gb,
+             moe_ffn_same_cut=moe_ffn_figures, seconds=t[-1] - t[-2])
+        check(all(math.isfinite(x) for x in fl + norms),
+              f"{arch} per-shard: non-finite losses or norms {fl} {norms}")
+        check(set(shard_calls) == {tokens // PARALLEL_SHARDS},
+              f"{arch}: route calls of {sorted(set(shard_calls))} tokens, "
+              f"not one a shard of {tokens // PARALLEL_SHARDS}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) one MoE layer at published width, CPU against CUDA
+        moe_cpu = L.init_weights_(L.MoE(fcfg, "cpu"), 0)
+        moe_gpu = copy.deepcopy(moe_cpu).to(dev).requires_grad_(True)
+        g = torch.Generator().manual_seed(0)
+        x = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, fcfg.d_model, generator=g)
+             + torch.randn(fcfg.d_model, generator=g)).bfloat16()
+        ct = torch.randn(x.shape, generator=g).bfloat16()
+        logs = {"cpu": [], "cuda": [], "cuda2": [], "follow": []}
+
+        def layer(m, d, log, follow=None, grad=False):
+            orig = _route_log(L, log, follow)
+            try:
+                with api.mesh_context(shards):
+                    xd = x.to(d).requires_grad_(grad)
+                    y, aux = L.moe_ffn_local(m, xd, fcfg)
+                    if not grad:
+                        return y.detach(), aux.detach()
+                    gs = torch.autograd.grad(
+                        (y, aux), [xd] + list(m.parameters()),
+                        (ct.to(d), torch.ones((), device=d)))
+                    return y.detach(), aux.detach(), gs
+            finally:
+                L.moe_route = orig
+        with torch.no_grad():
+            y_cpu, aux_cpu = layer(moe_cpu, "cpu", logs["cpu"])
+        runs = [layer(moe_gpu, dev, logs[k], grad=True)
+                for k in ("cuda", "cuda2")]
+        repeat = torch.equal(runs[0][0], runs[1][0]) and \
+            torch.equal(runs[0][1], runs[1][1]) and \
+            all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+        first = None
+        for i, ((a, probs), (b, _)) in enumerate(zip(logs["cpu"],
+                                                     logs["cuda"])):
+            if not torch.equal(a, b):
+                top = probs.sort(dim=1, descending=True).values
+                gap = top[:, fcfg.top_k - 1] - top[:, fcfg.top_k]
+                toks = torch.nonzero((a != b).any(1)).flatten()
+                first = {"shard": i, "tokens": len(toks),
+                         "max_prob_gap": float(gap[toks].max()),
+                         "near_tie": bool((gap[toks] < NEAR_TIE).all())}
+                break
+        with torch.no_grad():
+            y_f, aux_f = layer(moe_gpu, dev, logs["follow"], logs["cpu"])
+        err = row_rel_err(y_f.cpu(), y_cpu)
+        t.append(time.perf_counter())
+        emit(phase="parallel_moe_layer", arch=arch, d_model=fcfg.d_model,
+             experts=fcfg.n_experts, top_k=fcfg.top_k,
+             tokens=TRAIN_BATCH * TRAIN_SEQ, shards=PARALLEL_SHARDS,
+             route_calls=len(logs["cpu"]), cuda_runs_equal=repeat,
+             first_routing_difference=first,
+             following_cpu_row_rel_err=err, row_rel_bound=MOE_LAYER_ROW_REL,
+             aux_cpu=float(aux_cpu), aux_cuda=float(runs[0][1]),
+             aux_following=float(aux_f), seconds=t[-1] - t[-2])
+        check(repeat, "two CUDA runs of moe_ffn_local differ")
+        check(len(logs["cpu"]) == len(logs["cuda"]) == PARALLEL_SHARDS,
+              f"route calls {len(logs['cpu'])} / {len(logs['cuda'])}")
+        check(first is None or first["near_tie"],
+              f"CPU and CUDA route otherwise without a near tie: {first}")
+        check(err <= MOE_LAYER_ROW_REL, f"moe_ffn_local following the CPU's "
+              f"experts is {err} from the CPU")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(init_dir, ignore_errors=True)
+    launches = fa.launches
+    emit(phase="parallel_seconds", phase_s=dict(zip(
+        ("world1_qwen", "moe_local_deepseek", "moe_layer"),
+        np.diff(t).tolist())), seconds=t[-1] - t[0], flash_launches=launches)
+    check(launches == 0, f"the parallel path launched the flash kernel "
+          f"{launches} times")
+    return launches
+
+
 def busy_share(fn, reps: int = 1, by_kernel: bool = False,
                tags=()) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
@@ -2419,7 +2638,8 @@ def main() -> int:
     # ---- the training path: flash launches counted from zero, must stay 0 -
     t = [time.perf_counter()]
     tcfg = get_config(TRAIN_ARCH).model
-    trainer, train_launches = phase_train_full(fa, tcfg, bf16_flops_per_s)
+    trainer, train_launches, train_losses = phase_train_full(
+        fa, tcfg, bf16_flops_per_s)
     t.append(time.perf_counter())
     train_launches += phase_train_long(fa, trainer, tcfg, bf16_flops_per_s)
     del trainer
@@ -2431,11 +2651,12 @@ def main() -> int:
     t.append(time.perf_counter())
 
     # ---- the other families' training, each counted from zero, must be 0 --
-    family_train_launches = {}
+    family_train_launches, family_figures = {}, {}
     for arch in TRAIN_FAMILY_ARCHS:
-        family_train_launches[arch] = phase_train_family_full(
-            fa, PM, family_config(get_config, arch, TRAIN_FAMILY_LAYERS),
-            bf16_flops_per_s)
+        family_train_launches[arch], family_figures[arch] = \
+            phase_train_family_full(
+                fa, PM, family_config(get_config, arch, TRAIN_FAMILY_LAYERS),
+                bf16_flops_per_s)
         gc.collect()
         torch.cuda.empty_cache()
         t.append(time.perf_counter())
@@ -2445,6 +2666,10 @@ def main() -> int:
                            phase="train_family_resume")
     phase_ssd_grad_128(L)
     t.append(time.perf_counter())
+    parallel_launches = phase_parallel(
+        fa, PM, L, get_config, train_losses, bf16_flops_per_s,
+        family_figures.get("deepseek-moe-16b"))
+
     emit(phase="train_seconds", phase_s=dict(zip(
         ("train_full", "train_long", "cpu_vs_gpu+resume")
         + tuple(f"family_full {a}" for a in TRAIN_FAMILY_ARCHS)
@@ -2483,6 +2708,7 @@ def main() -> int:
         "launches_serve_family": family_launches,
         "launches_training": train_launches,
         "launches_training_families": family_train_launches,
+        "launches_parallel": parallel_launches,
         "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
         "max_abs_err": flash_err[torch.bfloat16],
         "max_abs_err_f32": flash_err[torch.float32],

@@ -8,7 +8,11 @@ Counterpart of ``repro.checkpoint.manager``, with its on-disk contract:
 - one ``leaf{i}.npy`` per tensor, bf16 stored as float32 (``.npy`` has
   no bf16), and ``manifest.json`` with ``step``, ``n_leaves`` and the
   structure (``treedef``: the leaves' dotted names, comma-joined);
-- retention: the latest ``keep`` checkpoints stay.
+- retention: the latest ``keep`` checkpoints stay;
+- under a default process group every rank holds the same state: rank 0
+  writes, and every rank meets the others at a barrier once rank 0's
+  write is done (at the next ``save``, or in ``wait``). Every rank
+  restores.
 
 A state is a tree of dicts with tensor leaves, flattened in the dicts'
 insertion order: the trainer's ``{"params": ..., "opt": {"m", "v",
@@ -27,6 +31,9 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.api import process_group
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -60,10 +67,17 @@ class CheckpointManager:
     def save(self, step: int, state: Mapping, blocking: bool = False) -> None:
         """Write ``state`` as ``step-<step>``, on a thread unless
         ``blocking``. Every leaf is copied to the host before this
-        returns, so training may go on changing the tensors in place."""
+        returns, so training may go on changing the tensors in place.
+        Under a process group only rank 0 writes; every rank must call
+        this at the same steps."""
         self.wait()                      # serialize with in-flight saves
-        if step in self.all_steps():
-            return
+        group = process_group()
+        if (group is None or group[0] == 0) and step not in self.all_steps():
+            self._start(step, state, blocking)
+        if blocking:
+            self.wait()
+
+    def _start(self, step: int, state: Mapping, blocking: bool) -> None:
         leaves = flatten(state)
         host = []
         for t in leaves.values():
@@ -94,8 +108,12 @@ class CheckpointManager:
             self._thread.start()
 
     def wait(self) -> None:
+        """Join an in-flight save; under a process group, then wait for
+        every rank."""
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
+        if process_group() is not None:
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.all_steps())

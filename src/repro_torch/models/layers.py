@@ -12,8 +12,12 @@ attention is :func:`blocked_attention`, the reference's jnp blocked
 softmax as torch ops under autograd; one-step decode attention is
 plain torch, as the reference has no kernel there. The MoE dispatch and
 the SSD are plain torch too, as they are XLA in the reference. The
-reference's sharding constraints (``wsc``) are dropped: they do nothing
-without a device mesh, and this path runs on one GPU.
+reference's sharding constraints (``wsc``) are left out: the port's
+``parallel.api.wsc`` changes only a DTensor, and these functions take
+plain tensors. What a mesh changes here it changes through
+``parallel.api``: ``moe_ffn_local`` dispatches per data shard, and where
+the batch is spread over several processes both MoE functions run
+their collectives (``parallel.api.processes``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import api
 
 NEG_INF = -1e30
 
@@ -361,10 +366,10 @@ def moe_assign(probs: torch.Tensor, eidx: torch.Tensor, C: int) -> Route:
 
 def _sum_by_token(rows: torch.Tensor, spos: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """Each token's K rows of ``rows`` (T*K, D) float32, in sorted entry
-    order, read through ``spos`` (T, K) and summed in ascending expert
-    order from 0.0 in float32, then rounded to ``dtype``."""
-    y = torch.zeros((spos.shape[0], rows.shape[1]), dtype=torch.float32,
+    """Each token's K rows of ``rows`` (T*K, D), in sorted entry order,
+    read through ``spos`` (T, K) and summed in ascending expert order
+    from 0 in ``rows``' dtype, then rounded to ``dtype``."""
+    y = torch.zeros((spos.shape[0], rows.shape[1]), dtype=rows.dtype,
                     device=rows.device)
     for k in range(spos.shape[1]):
         y = y + rows[spos[:, k]]
@@ -427,7 +432,21 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg):
     per-expert buffer of ``moe_capacity(cfg, T)`` slots (later entries of
     a full expert are dropped), every expert runs on its buffer, and the
     outputs are gathered back by gate. ``aux`` is the Switch-style load
-    balancing loss in float32."""
+    balancing loss in float32.
+
+    Where the batch is spread over processes, the reference dispatches
+    the whole batch at once: every rank gathers all ranks' rows (in rank
+    order), dispatches them all with the whole batch's capacity, and
+    keeps its own rows of y; aux is the whole batch's on every rank."""
+    if api.processes() == 1:
+        return _moe_ffn(p, x, cfg)
+    rank, _ = api.process_group()
+    y, aux = _moe_ffn(p, api.all_gather_rows(x), cfg)
+    B = x.shape[0]
+    return y[rank * B:(rank + 1) * B], aux
+
+
+def _moe_ffn(p: MoE, x: torch.Tensor, cfg):
     B, S, D = x.shape
     E, T = cfg.n_experts, B * S
     C = moe_capacity(cfg, T)
@@ -441,11 +460,60 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg):
     return y.reshape(B, S, D), aux
 
 
+def _dp_shards() -> int:
+    """The data shards (pod x data of the context mesh) that this process
+    holds: all of them in one process, 1 each when every rank holds
+    one; 1 without a mesh."""
+    mesh = api.get_mesh()
+    return 1 if mesh is None else api.local_shards(mesh)
+
+
 def moe_ffn_local(p: MoE, x: torch.Tensor, cfg):
-    """The reference's per-data-shard dispatch. It returns ``moe_ffn``
-    when there is no mesh of more than one data shard, and the port runs
-    on one device without a mesh, so here it is ``moe_ffn``."""
-    return moe_ffn(p, x, cfg)
+    """The reference's hierarchical dispatch: the tokens of each data
+    shard are sorted and scattered into that shard's own capacity of
+    ``C = max(8, int(Tl * K * cf / E))`` slots an expert (Tl tokens a
+    shard, cf 1.0 under ``opt_moe_cf1``), every expert runs on all
+    shards' buffers, and each token sums its kept gated outputs from 0
+    in the model's dtype (bf16), in ascending expert order, the order of
+    the reference's scatter-add over the sorted entries. ``aux`` counts
+    every token of the whole batch, over all processes that hold its
+    shards. ``moe_ffn`` when the mesh has one batch shard or none, or the
+    tokens do not split evenly over the shards."""
+    mesh = api.get_mesh()
+    B, S, D = x.shape
+    E, K, T = cfg.n_experts, cfg.top_k, B * S
+    dp = _dp_shards()
+    if mesh is None or mesh.batch_shards <= 1 or T % dp:
+        return moe_ffn(p, x, cfg)
+    Tl = T // dp
+    cf = 1.0 if cfg.opt_moe_cf1 else cfg.capacity_factor
+    C = max(8, int(Tl * K * cf / E))
+    xf = x.reshape(T, D)
+    routes = [moe_route(p, xf[g * Tl:(g + 1) * Tl], cfg, C)
+              for g in range(dp)]
+    # one (E, dp * C, D) buffer: expert e's slots of shard g at
+    # [g * C, (g + 1) * C); a dropped entry goes to the spare row E*dp*C
+    slot = torch.cat([torch.where(r.keep, r.se * (dp * C) + g * C + r.pos,
+                                  E * dp * C)
+                      for g, r in enumerate(routes)])
+    st = torch.cat([r.st + g * Tl for g, r in enumerate(routes)])
+    spos = torch.cat([r.spos + g * Tl * K for g, r in enumerate(routes)])
+    sg = torch.cat([r.sg for r in routes])
+    out = moe_experts(p, _Dispatch.apply(xf, slot, st, spos, E, dp * C),
+                      cfg.act)
+    flat = F.pad(out.reshape(E * dp * C, D), (0, 0, 0, 1))
+    y = _sum_by_token(flat[slot] * sg[:, None].to(x.dtype), spos, x.dtype)
+    if cfg.n_shared_experts:
+        y = y + p.shared(xf)
+    prob_sum = torch.stack([r.probs.sum(0) for r in routes]).sum(0)
+    counts = torch.stack([r.counts for r in routes]).sum(0).float()
+    if api.processes() > 1:
+        # summed over the ranks; the backward sums every rank's cotangent
+        from torch.distributed.nn.functional import all_reduce
+        prob_sum, counts = all_reduce(prob_sum), all_reduce(counts)
+        T = T * api.processes()
+    aux = E * torch.sum(prob_sum / T * (counts / (T * K)))
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -79,14 +79,18 @@ class Block(nn.Module):
             else:
                 self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, device)
 
-    def _ffn(self, x: torch.Tensor):
+    def _ffn(self, x: torch.Tensor, decode: bool = False):
         """x plus the FFN of ``ln2(x)``, and the MoE's aux loss (None
-        without an MoE)."""
+        without an MoE). The MoE dispatches per data shard
+        (``moe_ffn_local``) under ``cfg.opt_moe_local_dispatch``, except in
+        a decode step, as the reference's ``_layer_decode``."""
         if self.ffn is None:
             return x, None
         h = L.apply_norm(self.cfg.norm, x, self.ln2)
         if self.ffn == "moe":
-            f, aux = L.moe_ffn(self.moe, h, self.cfg)
+            local = self.cfg.opt_moe_local_dispatch and not decode
+            moe = L.moe_ffn_local if local else L.moe_ffn
+            f, aux = moe(self.moe, h, self.cfg)
             return x + f, aux
         return x + self.mlp(h), None
 
@@ -124,7 +128,7 @@ class Block(nn.Module):
         else:
             a = L.mamba_decode(self.mamba, h, self.cfg, caches["conv"][row],
                                caches["ssm"][row])
-        return self._ffn(x + a)[0]
+        return self._ffn(x + a, decode=True)[0]
 
 
 class DecoderLM(nn.Module):
@@ -181,6 +185,9 @@ def forward(model: DecoderLM, tokens: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in model.blocks:
         if model.cfg.remat:
+            # an MoE layer's collectives (parallel.api, on a mesh spread
+            # over processes) run again in the backward's recompute: every
+            # rank recomputes the same layers in the same order
             x, aux = checkpoint(blk, x, positions, use_reentrant=False)
         else:
             x, aux = blk(x, positions)

@@ -10,8 +10,12 @@ Counterpart of ``repro.train.loop``:
   a checkpoint;
 - straggler watchdog: a step slower than ``straggler_factor`` x the
   running median is counted and logged;
-- optional int8 gradient compression, numerically the quantize ->
-  dequantize transfer of a compressed data-parallel all-reduce.
+- data parallelism under ``torch.distributed``: with a default process
+  group of w ranks, each rank takes its share of every microbatch, and
+  the gradients are averaged by an all-reduce in float32 (or, with int8
+  compression, by an all-gather of each rank's int8 values and scale);
+- optional int8 gradient compression: without a process group, the
+  quantize -> dequantize transfer of a compressed all-reduce.
 
 The model is a torch module whose parameters the step updates in place;
 gradients come from autograd through the training forward
@@ -28,12 +32,14 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel.api import process_group
 
 
 def default_ckpt_dir() -> str:
@@ -71,13 +77,72 @@ def compress_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: f(g) for n, g in grads.items()}
 
 
+def all_reduce_mean(grads: Dict[str, torch.Tensor], world: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Each gradient summed over the ranks in float32 (in the dicts'
+    order, the same on every rank), divided by ``world`` and cast back
+    to its dtype; exact at world size 1."""
+    out = {}
+    for n, g in grads.items():
+        t = g.float()
+        dist.all_reduce(t)
+        out[n] = (t / world).to(g.dtype)
+    return out
+
+
+def all_reduce_int8(grads: Dict[str, torch.Tensor], world: int
+                    ) -> Dict[str, torch.Tensor]:
+    """The compressed all-reduce: each rank quantizes its own gradient
+    (``quantize_int8``, one f32 scale a leaf), the ranks all-gather the
+    int8 values and the scales, and each rank dequantizes them, sums
+    them in rank order from rank 0 in float32, divides by ``world`` and
+    casts back. At world size 1 this is ``compress_grads`` bit for bit;
+    otherwise each element is within half a step of every rank's scale,
+    over ``world``, plus rounding, of the mean of the ranks' gradients."""
+    out = {}
+    for n, g in grads.items():
+        q, s = quantize_int8(g.float())
+        qs = [torch.empty_like(q) for _ in range(world)]
+        ss = [torch.empty_like(s.reshape(1)) for _ in range(world)]
+        dist.all_gather(qs, q)
+        dist.all_gather(ss, s.reshape(1))
+        acc = dequantize_int8(qs[0], ss[0][0])
+        for qr, sr in zip(qs[1:], ss[1:]):
+            acc = acc + dequantize_int8(qr, sr[0])
+        out[n] = (acc / world).to(g.dtype)
+    return out
+
+
+def rank_rows(batch: Dict[str, torch.Tensor], mb: int, rank: int,
+              world: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s rows of a global batch of B rows in ``mb``
+    microbatches: rows ``i * B / mb + rank * B / (mb * world)`` onward,
+    ``B / (mb * world)`` of them, of each microbatch i, in order. So the
+    ranks' rows of microbatch i, in rank order, are its rows."""
+    B = batch["tokens"].shape[0]
+    if B % (mb * world):
+        raise ValueError(f"batch {B} does not split into {mb} microbatches "
+                         f"over {world} ranks")
+    b = B // (mb * world)
+    return {k: v.reshape(mb, B // mb, *v.shape[1:])
+            [:, rank * b:(rank + 1) * b].reshape(mb * b, *v.shape[1:])
+            for k, v in batch.items()}
+
+
 def make_step(cfg, opt_cfg: adamw.OptConfig, train_cfg: TrainConfig):
     """``train_step(model, opt_state, batch) -> {"loss", "lr",
     "grad_norm"}`` (0-dim tensors on the model's device): the gradients of
     ``M.loss_fn``, accumulated over ``train_cfg.microbatches`` in float32
     and divided by their count (one microbatch keeps them in the
     parameters' dtype), int8-compressed if asked, then one AdamW update
-    of the model's parameters and ``opt_state`` in place."""
+    of the model's parameters and ``opt_state`` in place.
+
+    Under a default process group ``batch`` is the global batch: each
+    rank trains on its rows of it (:func:`rank_rows`), and the loss and
+    the gradients are averaged over the ranks (:func:`all_reduce_mean`,
+    or :func:`all_reduce_int8` under int8 compression) before the
+    update, so every rank's norm, clip and update are the same. A
+    world of one rank gives the bits of the step without a group."""
     mb = train_cfg.microbatches
 
     def grads_of(model, params, batch):
@@ -89,6 +154,9 @@ def make_step(cfg, opt_cfg: adamw.OptConfig, train_cfg: TrainConfig):
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
+        group = process_group()
+        if group is not None:
+            batch = rank_rows(batch, mb, *group)
         if mb > 1:
             B = batch["tokens"].shape[0]
             if B % mb:
@@ -111,7 +179,14 @@ def make_step(cfg, opt_cfg: adamw.OptConfig, train_cfg: TrainConfig):
             grads = {n: g / mb for n, g in grads.items()}
         else:
             loss, grads = grads_of(model, params, batch)
-        if train_cfg.grad_compression == "int8":
+        int8 = train_cfg.grad_compression == "int8"
+        if group is not None:
+            world = group[1]
+            dist.all_reduce(loss)
+            loss = loss / world
+            grads = (all_reduce_int8 if int8 else all_reduce_mean)(
+                grads, world)
+        elif int8:
             grads = compress_grads(grads)
         _, _, stats = adamw.update(opt_cfg, grads, opt_state, params)
         return {"loss": loss, **stats}
@@ -171,6 +246,18 @@ class Trainer:
         print(f"[trainer] signal {signum}: checkpoint + stop")
         self._preempted = True
 
+    def _stop_requested(self) -> bool:
+        """Whether a signal asked this run to stop. Under a process group
+        the ranks' flags are all-reduced with MAX at every step's end, so
+        that every rank saves and stops at the same step even when the
+        signal reaches one rank a step before another: each rank then
+        enters the same collectives in the same order."""
+        if process_group() is None:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def run(self) -> Dict[str, Any]:
         tc = self.train_cfg
         old1 = signal.signal(signal.SIGTERM, self._handle_preempt)
@@ -200,9 +287,10 @@ class Trainer:
                           f"lr={float(stats['lr']):.2e} "
                           f"gnorm={float(stats['grad_norm']):.3f} "
                           f"dt={dt:.2f}s", flush=True)
-                if (step + 1) % tc.ckpt_every == 0 or self._preempted:
+                stop = self._stop_requested()
+                if (step + 1) % tc.ckpt_every == 0 or stop:
                     self.ckpt.save(step + 1, self.state())
-                if self._preempted:
+                if stop:
                     break
         finally:
             self.ckpt.save(min(tc.steps, self.start_step + len(losses)),
