@@ -7,14 +7,14 @@ the card, drives the four main paths at full size -- route-and-simulate
 full PT 16^3 pod), the fault-tolerant path (every simulator mode held
 CUDA against CPU and dense against CSR at 4x4x8; an OCS fault mid-sweep
 under static and adaptive escape-VC routing and the hotspot acceptance
-at PT 8x8x8; a serving build and online repair of PDTT 12^3; the chaos
+at PT 8x8x8; a serving build and online repair of PDTT 8^3; the chaos
 acceptance campaign on PDTT 8^3 with its replay), synthesis and
 workload co-design (the csr_spmv kernel's DADD latency probe, the kernel
 on the 4x8x8 and 8^3 synthesis LPs and on rows of up to 70,000 entries,
 PDHG with its chunk as a CUDA graph equal on CUDA and the CPU, TONS
 synthesis of 4x8x8 with PDHG rounds on the card and its routed fabric,
 one graphed chunk of its first round against the CPU,
-``evaluate_workload`` of the two stored workload fabrics) and serving (qwen2.5-3b at its published widths, 8
+``evaluate_workload`` of a stored workload fabric) and serving (qwen2.5-3b at its published widths, 8
 ragged requests through the port's ``Server``, then one 32768-token
 prefill; then the MoE, SSM, hybrid and encoder-decoder families --
 deepseek-moe-16b, mamba2-2.7b, jamba-v0.1-52b cut to 16 of its 32
@@ -28,13 +28,17 @@ seamless-m4t-medium and deepseek-moe-16b cut to 6 of its 28 layers, 8
 steps each at their published widths, and one forward and backward of
 jamba cut to 8 of its 32 layers; those four archs' smoke models on CUDA
 against the CPU and resumed; the SSD's gradient at chunk 128; the flash
-kernel must not launch) -- checks that the simulator's, the LP solver's and the
-model's CUDA and CPU runs agree, and prints one JSON line per result.
+kernel must not launch; qwen2.5-3b's steps again with ``opt_remat_dots``,
+equal to plain remat bit for bit) and the four torch examples
+(``examples/torch_*.py`` at their counterparts' settings, the routes and
+the fault walkthrough's simulations held to the CPU) -- checks that the
+simulator's, the LP solver's and the model's CUDA and CPU runs agree,
+and prints one JSON line per result.
 
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one) and the repository's
-``src/`` and ``benchmarks/results/`` beside this file. Imports nothing
+``src/``, ``examples/`` and ``benchmarks/results/`` beside this file. Imports nothing
 of JAX or of the JAX package ``repro``. The last line of the output is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero first.
 """
@@ -137,6 +141,20 @@ MOE_LAYER_ROW_REL = 2e-2
 # CUDA against the CPU, per input (tests: 1e-5 against the reference's
 # sequential oracle)
 SSD_GRAD_REL = 1e-5
+# the serving build and repair of the fault path: PDTT 8^3, cut from the
+# reference's 12^3 (75-122 s of its build) to leave the examples room in
+# the time limit
+REPAIR_DIMS = (8, 8, 8)
+# the torch examples (examples/torch_*.py) at their counterparts' settings;
+# train_e2e at its docstring's full model (--d-model 768) for its default
+# 60 steps, not the docstring's 300 (67-116 s on the card): the time limit
+EXAMPLE_E2E_STEPS = 60
+# cycles of each simulator mode's sweep at 4x4x8, cut from 1200 for the
+# time limit (the CUDA, CPU and dense runs of six modes: ~105 s at 1200)
+SIM_MODES_CYCLES = 600
+# the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 for the
+# time limit (two campaigns: ~52 s at 20)
+CHAOS_REPLAY_ARRIVALS = 10
 
 
 def check(cond, msg):
@@ -1129,7 +1147,10 @@ def phase_train_full(fa, cfg, bf16_flops_per_s, dev="cuda"):
           f"the loss did not fall: {losses}")
     check(launches == 0, f"training launched the flash kernel {launches} "
           "times")
-    return tr, launches, losses
+    return tr, launches, losses, dict(
+        max_memory_gb=peak_gb, median_step_s_after_first=med,
+        kernels_per_step=prof["kernels"], busy_share=prof["busy_share"],
+        profiled_step_s=prof["wall_s"])
 
 
 def phase_train_long(fa, tr, cfg, bf16_flops_per_s, dev="cuda"):
@@ -1138,11 +1159,10 @@ def phase_train_long(fa, tr, cfg, bf16_flops_per_s, dev="cuda"):
     memory of the first step, then a profiled step; and the blocked
     attention's share of it, from one layer's attention timed alone
     (forward, and the remat's forward again with the backward) times the
-    layers. Returns the flash launches."""
-    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    layers. Returns the flash launches and the figures of the long step
+    (its first loss among them)."""
     from repro_torch.models import layers as L
-    batch = SyntheticLM(DataConfig(cfg.vocab, TRAIN_LONG_S, 1)).torch_batch(
-        0, dev)
+    batch = long_batch(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1193,6 +1213,91 @@ def phase_train_long(fa, tr, cfg, bf16_flops_per_s, dev="cuda"):
          prof["device_busy_s"])
     check(math.isfinite(loss), f"long step loss {loss}")
     check(launches == 0, f"the long step launched flash {launches} times")
+    return launches, dict(loss=loss, first_step_s=first_s,
+                          max_memory_gb=peak_gb,
+                          profiled_step_s=prof["wall_s"],
+                          kernels_per_step=prof["kernels"],
+                          busy_share=prof["busy_share"])
+
+
+def long_batch(cfg, dev):
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(cfg.vocab, TRAIN_LONG_S, 1)).torch_batch(
+        0, dev)
+
+
+def phase_remat_dots(fa, cfg, plain_params, plain_full, plain_long,
+                     train_losses, bf16_flops_per_s, dev="cuda"):
+    """train_full's and train_long's steps once more, in the same order
+    from the same seed, with ``cfg.opt_remat_dots``: the body layers keep
+    the outputs of their 2-D products (``lm.save_dots``) and recompute
+    the rest. TRAIN_STEPS steps through ``Trainer.run`` (checkpoints
+    off), train_full's profiled step on batch TRAIN_STEPS, then
+    train_long's first and profiled steps at S TRAIN_LONG_S. The losses
+    and the final parameters must equal the plain-remat run's
+    (``plain_params``, host copies) bit for bit; peak memory, step s,
+    kernels a step and busy share beside the plain run's figures
+    (``plain_full``, ``plain_long``). Returns the flash launches."""
+    t0 = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, opt_remat_dots=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as d:
+        tr = train_config(dcfg, TRAIN_STEPS, d, TRAIN_LR,
+                          max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
+                          TRAIN_BATCH, TRAIN_SEQ, dev)
+        tr.ckpt.save = lambda *a, **kw: None
+        fa.launches = 0                             # the remat_dots path
+        out = tr.run()
+    short_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = tr.data.torch_batch(TRAIN_STEPS, dev)
+    prof = busy_share(lambda: tr.step_fn(tr.model, tr.opt_state, batch))
+    batch = long_batch(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    long_loss = float(tr.step_fn(tr.model, tr.opt_state, batch)["loss"])
+    long_first_s = time.perf_counter() - t1
+    long_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    long_prof = busy_share(lambda: tr.step_fn(tr.model, tr.opt_state,
+                                              batch))
+    launches = fa.launches
+    params = dict(tr.model.named_parameters())
+    differ = [n for n, p in params.items()
+              if not torch.equal(p.detach().cpu(), plain_params[n])]
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = statistics.median(out["step_times"][1:])
+    short = dict(max_memory_gb=short_peak_gb, median_step_s_after_first=med,
+                 kernels_per_step=prof["kernels"],
+                 busy_share=prof["busy_share"], profiled_step_s=prof["wall_s"])
+    long = dict(loss=long_loss, first_step_s=long_first_s,
+                max_memory_gb=long_peak_gb,
+                profiled_step_s=long_prof["wall_s"],
+                kernels_per_step=long_prof["kernels"],
+                busy_share=long_prof["busy_share"])
+    emit(phase="remat_dots", arch=cfg.name, n_layers=cfg.n_layers,
+         policy="save aten.mm / aten.addmm outputs, recompute the rest",
+         resident_gb_before=resident_gb, losses=out["losses"],
+         plain_losses=train_losses, step_times_s=out["step_times"],
+         train_full=short, train_full_plain=plain_full,
+         train_long=long, train_long_plain=plain_long,
+         delta_peak_gb=dict(
+             train_full=short_peak_gb - plain_full["max_memory_gb"],
+             train_long=long_peak_gb - plain_long["max_memory_gb"]),
+         params_differing=differ[:8], n_params_differing=len(differ),
+         flash_launches=launches, seconds=time.perf_counter() - t0)
+    check(out["losses"] == train_losses, f"remat_dots losses "
+          f"{out['losses']} are not plain remat's {train_losses}")
+    check(long_loss == plain_long["loss"], f"remat_dots long-step loss "
+          f"{long_loss} is not plain remat's {plain_long['loss']}")
+    check(not differ, f"{len(differ)} parameters differ from plain remat's "
+          f"after the same steps: {differ[:8]}")
+    check(launches == 0, f"remat_dots launched flash {launches} times")
     return launches
 
 
@@ -1559,7 +1664,7 @@ def _escape_config(PipelineConfig, **kw):
 
 
 def phase_sim_modes(PNS, PT, PF, TR, route_pod, PipelineConfig,
-                    dims=(4, 4, 8), cycles=1200, dev="cuda"):
+                    dims=(4, 4, 8), cycles=SIM_MODES_CYCLES, dev="cuda"):
     """Every simulator mode beyond the static path on the card, held to
     the same sweep on the CPU (``==``), and the dense oracle kernel to
     the CSR kernel on the card: adaptive, static and adaptive with an
@@ -1684,10 +1789,10 @@ def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
           f"{HOTSPOT_SAT}")
 
 
-def phase_repair(PR, PF, PT, mp, dims=(12, 12, 12), dev="cuda"):
-    """Time to recover at the reference's size: the cold serving build of
-    PDTT ``dims`` (its APL hop matrix on the minplus hop kernel), then an
-    incremental repair of the first OCS colour, fully verified."""
+def phase_repair(PR, PF, PT, mp, dims=REPAIR_DIMS, dev="cuda"):
+    """Time to recover: the cold serving build of PDTT ``dims`` (its APL
+    hop matrix on the minplus hop kernel), then an incremental repair of
+    the first OCS colour, fully verified."""
     topo = PT.pdtt(dims)
     launches0 = mp.hop_launches
     t0 = time.perf_counter()
@@ -1703,7 +1808,7 @@ def phase_repair(PR, PF, PT, mp, dims=(12, 12, 12), dev="cuda"):
     mask = np.zeros(st.at.channels.n, bool)
     mask[dead] = True
     on_dead = int(mask[rr.state.table.chan].sum())
-    emit(phase="repair_12", fabric=f"PDTT {dims}", n=topo.n,
+    emit(phase="repair", fabric=f"PDTT {dims}", n=topo.n,
          build_s=build_s, hop_launches=launches, l_max_cold=st.l_max,
          color=color, dead_links=len(dead), repair_s=repair_s,
          flows_rerouted=rr.flows_rerouted, l_max=rr.l_max,
@@ -1775,8 +1880,8 @@ def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
     small = PR.ServingState.build(PT.pdtt(replay_dims), n_vc=2, K=4, seed=0,
                                   robust=True, device=dev)
     runs = [PX.run_campaign(small, PX.generate_schedule(
-        small.at, n_arrivals=20, seed=7), coalesce=1.0, probe_every=5,
-        device=dev) for _ in range(2)]
+        small.at, n_arrivals=CHAOS_REPLAY_ARRIVALS, seed=7), coalesce=1.0,
+        probe_every=5, device=dev) for _ in range(2)]
     same = runs[0].fingerprint() == runs[1].fingerprint() and \
         [r.probe for r in runs[0].records] == \
         [r.probe for r in runs[1].records]
@@ -1819,7 +1924,9 @@ PR16_REL_GAP_RTOL = 1e-12
 # PR 16's lambda per round of synthesize((4, 8, 8), prefer="pdhg") on the
 # card (PERF.md section 5)
 PR16_LAMBDAS = (0.0024193284642204, 0.0020397131974831, 0.0022107287458099)
-WL_ARCHS = ("deepseek-moe-16b", "gemma-7b")
+# the stored workload fabrics evaluated: deepseek-moe-16b's, cut from it and
+# gemma-7b's (~40 s each on the card) for the time limit
+WL_ARCHS = ("deepseek-moe-16b",)
 # benchmarks/bench_workload.py's evaluation
 WL_SAT = dict(step=0.02, cycles=2000, warmup=600)
 WL_RATES, WL_CYCLES = [0.1, 0.4], 1200
@@ -2122,8 +2229,8 @@ def load_workload_fabric(convert, arch):
 
 
 def phase_workload(PW, convert, PipelineConfig, dev="cuda", sat=WL_SAT):
-    """``evaluate_workload`` of the two stored workload fabrics, each on
-    its arch's analytic demand (train_4k), routed and swept as
+    """``evaluate_workload`` of the stored workload fabrics of WL_ARCHS,
+    each on its arch's analytic demand (train_4k), routed and swept as
     bench_workload.py does; the reference's stored CPU values beside
     them as context only (ROADMAP caveat R2)."""
     stored = json.loads((ROOT / "BENCH_workload.json").read_text())
@@ -2380,6 +2487,132 @@ def phase_parallel(fa, PM, L, get_config, train_losses, bf16_flops_per_s,
     return launches
 
 
+def jsonable(x):
+    """``x`` with numpy scalars and arrays, tuples and non-string keys
+    made plain for ``json.dumps``."""
+    if isinstance(x, dict):
+        return {str(k): jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [jsonable(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(fa, mp, PT, route_pod, PipelineConfig,
+                   e2e_steps=EXAMPLE_E2E_STEPS, dev="cuda"):
+    """The four torch examples in this process, at their counterparts'
+    settings, each through its ``main`` with the kernels' counts from
+    zero: quickstart (4x4x8), fault_tolerant_pod whole, serve_batched's
+    defaults, train_e2e at its docstring's full model (``--d-model
+    768``) for ``e2e_steps`` steps. Their own asserts hold; quickstart's
+    route equals a CPU ``route_pod`` of the fabric it synthesized;
+    fault_tolerant_pod's network half (re-route, repair and the four
+    patterns' delivered and offered rates) equals a CPU run of the same
+    calls. ``dev`` must be the card (the examples' default); another
+    device is passed as ``--device`` for a rehearsal. Returns each
+    example's minplus hop and flash launches."""
+    argv = [] if dev == "cuda" else ["--device", str(dev)]
+    launches, seconds = {}, {}
+
+    def run(name, *args):
+        mp.launches = mp.hop_launches = fa.launches = 0
+        t0 = time.perf_counter()
+        mod = load_example(name)
+        out = mod.main(argv + list(args))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = dict(minplus_hops=mp.hop_launches,
+                              minplus_f32=mp.launches,
+                              flash_attention=fa.launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return mod, out
+
+    _, qs = run("torch_quickstart")
+    topo = PT.Topology(PT.Pod(qs["spec"]), [tuple(e) for e in qs["optical"]])
+    cpu = route_pod(topo, PipelineConfig(
+        robust=True, K=4, engine="array", local_search_rounds=3,
+        vc="inplace", verify=True), device="cpu")
+    qs_cpu = dict(n_routed=int(cpu.table.n_routed()), l_max=cpu.l_max,
+                  vc_counts=cpu.vc_counts.tolist(),
+                  deadlock_free=bool(cpu.deadlock_free))
+    emit(phase="example", name="torch_quickstart",
+         seconds=seconds["torch_quickstart"],
+         launches=launches["torch_quickstart"], result=jsonable(qs),
+         cpu_route=qs_cpu)
+    check({k: qs[k] for k in qs_cpu} == qs_cpu,
+          f"quickstart's route on the card differs from the CPU's: "
+          f"{ {k: qs[k] for k in qs_cpu} } against {qs_cpu}")
+
+    ftp_mod, ftp = run("torch_fault_tolerant_pod")
+    t0 = time.perf_counter()
+    ftp_cpu = ftp_mod.network("cpu")
+    cpu_s = time.perf_counter() - t0
+    keys = ("certificate", "fault_color", "dead_channels", "unreachable",
+            "l_max_base", "l_max_fault", "flows_rerouted", "n_flows",
+            "l_max_repair", "sims")
+    differ = [k for k in keys if ftp[k] != ftp_cpu[k]]
+    emit(phase="example", name="torch_fault_tolerant_pod",
+         seconds=seconds["torch_fault_tolerant_pod"],
+         launches=launches["torch_fault_tolerant_pod"], result=jsonable(ftp),
+         cpu_network=jsonable({k: ftp_cpu[k] for k in keys}),
+         cpu_network_s=cpu_s, differ_from_cpu=differ)
+    check(not differ, f"fault_tolerant_pod on the card differs from the "
+          f"CPU in {differ}")
+
+    _, sv = run("torch_serve_batched")
+    emit(phase="example", name="torch_serve_batched",
+         seconds=seconds["torch_serve_batched"],
+         launches=launches["torch_serve_batched"],
+         result=jsonable({k: v for k, v in sv.items() if k != "results"}),
+         streams=jsonable(sv["results"]))
+    check(sv["served"] == 8, f"serve_batched served {sv['served']} of 8")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as d:
+        _, e2e = run("torch_train_e2e", "--d-model", "768", "--steps",
+                     str(e2e_steps), "--ckpt-dir", d)
+    times = e2e["step_times"]
+    emit(phase="example", name="torch_train_e2e",
+         seconds=seconds["torch_train_e2e"],
+         launches=launches["torch_train_e2e"], d_model=768,
+         steps=e2e_steps, full_steps=300, n_params=e2e["n_params"],
+         losses_first_last=[e2e["losses"][0], e2e["losses"][-1]],
+         losses=e2e["losses"][::10], final_step=e2e["final_step"],
+         stragglers=e2e["stragglers"],
+         median_step_s=statistics.median(times[1:]),
+         # train_e2e's --batch and --seq defaults
+         tokens_per_s=8 * 128 / statistics.median(times[1:]))
+    check(e2e["final_step"] == e2e_steps,
+          f"train_e2e ended at step {e2e['final_step']} of {e2e_steps}")
+
+    emit(phase="examples", seconds=seconds, launches=launches,
+         total_s=sum(seconds.values()))
+    check(launches["torch_quickstart"]["minplus_hops"] > 0,
+          "quickstart's route never launched the minplus hop kernel")
+    check(launches["torch_fault_tolerant_pod"]["minplus_hops"] > 0,
+          "fault_tolerant_pod never launched the minplus hop kernel")
+    check(launches["torch_serve_batched"]["flash_attention"] > 0,
+          "serve_batched's prefills never launched the flash kernel")
+    check(launches["torch_train_e2e"]["flash_attention"] == 0
+          and launches["torch_fault_tolerant_pod"]["flash_attention"] == 0,
+          f"training launched the flash kernel: {launches}")
+    return launches
+
+
 def busy_share(fn, reps: int = 1, by_kernel: bool = False,
                tags=()) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` after one warm-up:
@@ -2560,10 +2793,10 @@ def main() -> int:
     t.append(time.perf_counter())
     fault_launches, fault_f32 = mp.hop_launches, mp.launches
     emit(phase="fault_path_launches", minplus_hops=fault_launches,
-         minplus_f32=fault_f32, minplus_hops_repair_12=hops_repair,
+         minplus_f32=fault_f32, minplus_hops_repair=hops_repair,
          minplus_hops_chaos_8=hops_chaos,
          phase_s=dict(zip(("sim_modes_determinism", "fault_sweep",
-                           "repair_12", "chaos_8"), np.diff(t).tolist())),
+                           "repair", "chaos_8"), np.diff(t).tolist())),
          seconds=t[-1] - t[0])
     check(hops_chaos > 0, "the chaos build never launched the hop kernel")
 
@@ -2638,13 +2871,22 @@ def main() -> int:
     # ---- the training path: flash launches counted from zero, must stay 0 -
     t = [time.perf_counter()]
     tcfg = get_config(TRAIN_ARCH).model
-    trainer, train_launches, train_losses = phase_train_full(
+    trainer, train_launches, train_losses, full_figures = phase_train_full(
         fa, tcfg, bf16_flops_per_s)
     t.append(time.perf_counter())
-    train_launches += phase_train_long(fa, trainer, tcfg, bf16_flops_per_s)
+    long_launches_train, long_figures = phase_train_long(
+        fa, trainer, tcfg, bf16_flops_per_s)
+    train_launches += long_launches_train
+    plain_params = {n: p.detach().cpu()
+                    for n, p in trainer.model.named_parameters()}
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    remat_dots_launches = phase_remat_dots(
+        fa, tcfg, plain_params, full_figures, long_figures, train_losses,
+        bf16_flops_per_s)
+    del plain_params
     t.append(time.perf_counter())
     phase_train_cpu_vs_gpu(get_config)
     phase_train_resume(get_config)
@@ -2670,8 +2912,11 @@ def main() -> int:
         fa, PM, L, get_config, train_losses, bf16_flops_per_s,
         family_figures.get("deepseek-moe-16b"))
 
+    # ---- the torch examples, each counted from zero ------------------------
+    example_launches = phase_examples(fa, mp, PT, route_pod, PipelineConfig)
+
     emit(phase="train_seconds", phase_s=dict(zip(
-        ("train_full", "train_long", "cpu_vs_gpu+resume")
+        ("train_full", "train_long", "remat_dots", "cpu_vs_gpu+resume")
         + tuple(f"family_full {a}" for a in TRAIN_FAMILY_ARCHS)
         + ("family cpu_vs_gpu+resume+ssd_grad_128",),
         np.diff(t).tolist())), seconds=t[-1] - t[0])
@@ -2699,7 +2944,9 @@ def main() -> int:
         minplus_entry("f32", "minplus", launches, max_err),
         dict(minplus_entry("hops", "minplus_hops", hop_launches, hop_err),
              launches_fault_path=fault_launches,
-             launches_synthesis_path=synth_hops), {
+             launches_synthesis_path=synth_hops,
+             launches_examples={k: v["minplus_hops"] for k, v in
+                                example_launches.items()}), {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:24",
@@ -2709,6 +2956,9 @@ def main() -> int:
         "launches_training": train_launches,
         "launches_training_families": family_train_launches,
         "launches_parallel": parallel_launches,
+        "launches_remat_dots": remat_dots_launches,
+        "launches_examples": {k: v["flash_attention"] for k, v in
+                              example_launches.items()},
         "parity": "rtol=atol=2e-5 f32, 2e-2 bf16",
         "max_abs_err": flash_err[torch.bfloat16],
         "max_abs_err_f32": flash_err[torch.float32],

@@ -113,7 +113,11 @@ class Server:
                 "results": self.results}
 
 
-def main() -> None:
+def main(argv=None) -> dict:
+    """Serve ``--requests`` random prompts of the smoke model of
+    ``--arch`` (weights from seed 0) and print one summary line. Returns
+    the server's result (``served``, ``decode_steps``, ``results``: each
+    request's token stream) with ``tokens`` and ``seconds``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b", choices=list_archs())
     ap.add_argument("--requests", type=int, default=8)
@@ -122,7 +126,7 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).smoke_model()
     params = M.init_params(cfg, seed=0, device=args.device)
@@ -138,6 +142,7 @@ def main() -> None:
     print(f"[serve] arch={args.arch} served={out['served']} "
           f"decode_steps={out['decode_steps']} tokens={toks} "
           f"({toks / dt:.1f} tok/s) in {dt:.1f}s")
+    return dict(out, tokens=toks, seconds=dt)
 
 
 if __name__ == "__main__":

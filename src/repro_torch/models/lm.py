@@ -18,12 +18,14 @@ layers. :func:`decode_step` advances it in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -172,22 +174,54 @@ def _embed(model: DecoderLM, tokens: torch.Tensor,
     return x
 
 
+# the products with no batch dimension: the reference's dot_generals that
+# ``dots_with_no_batch_dims_saveable`` keeps (a batched einsum is a bmm)
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The remat policy of ``cfg.opt_remat_dots``: keep the outputs of 2-D
+    products, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_plan(cfg) -> List[Optional[str]]:
+    """How the training forward runs each layer, as the reference's plan
+    (``scan_blocks`` in ``repro.models.lm.forward``): None (no remat) for
+    the ``first_k_dense`` head layers and everything without
+    ``cfg.remat``; ``"plain"`` (recompute the whole layer) for a hybrid's
+    layers and a flat body without ``cfg.opt_remat_dots``; ``"dots"``
+    (keep :data:`DOTS`' outputs) for a flat body with it."""
+    n = len(layer_kinds(cfg))
+    if not cfg.remat:
+        return [None] * n
+    if cfg.family == "hybrid":
+        return ["plain"] * n
+    body = "dots" if cfg.opt_remat_dots else "plain"
+    return [None] * cfg.first_k_dense + [body] * (n - cfg.first_k_dense)
+
+
 def forward(model: DecoderLM, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None):
     """The training forward: tokens (B, S) -> (logits (B, S, V), the MoE
     layers' aux loss summed in float32). Attention runs
-    ``layers.blocked_attention``, which autograd differentiates; with
-    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` and is
-    recomputed in the backward, as the reference's ``scan_blocks(remat=
-    cfg.remat)``."""
+    ``layers.blocked_attention``, which autograd differentiates. Each
+    layer runs under ``torch.utils.checkpoint`` as :func:`remat_plan`
+    says, and is recomputed in the backward, whole or but for the 2-D
+    products it kept."""
     x = _embed(model, tokens, extra_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for blk in model.blocks:
-        if model.cfg.remat:
-            # an MoE layer's collectives (parallel.api, on a mesh spread
-            # over processes) run again in the backward's recompute: every
-            # rank recomputes the same layers in the same order
+    dots = functools.partial(create_selective_checkpoint_contexts, save_dots)
+    for blk, remat in zip(model.blocks, remat_plan(model.cfg)):
+        # an MoE layer's collectives (parallel.api, on a mesh spread over
+        # processes) run again in the backward's recompute: every rank
+        # recomputes the same layers in the same order
+        if remat == "dots":
+            x, aux = checkpoint(blk, x, positions, use_reentrant=False,
+                                context_fn=dots)
+        elif remat == "plain":
             x, aux = checkpoint(blk, x, positions, use_reentrant=False)
         else:
             x, aux = blk(x, positions)
