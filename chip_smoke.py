@@ -18,8 +18,11 @@ one graphed chunk of its first round against the CPU,
 ragged requests through the port's ``Server``, then one 32768-token
 prefill; then the MoE, SSM, hybrid and encoder-decoder families --
 deepseek-moe-16b, mamba2-2.7b, jamba-v0.1-52b cut to 16 of its 32
-layers, seamless-m4t-medium -- each at its published widths, 6 requests
-served twice with equal token streams, and its CPU-vs-CUDA case) and
+layers, seamless-m4t-medium -- and the other five registered archs --
+gemma-7b (head dim 256), stablelm-12b (160), internvl2-2b, qwen1.5-32b
+cut to 56 of its 64 layers, phi3.5-moe cut to 24 of its 32 -- each at
+its published widths, 6 requests served twice with equal token streams,
+and its CPU-vs-CUDA case, internvl2-2b's with its patch embeddings) and
 training (qwen2.5-3b at its published widths through ``Trainer``: 8
 steps with an async checkpoint, then one step of 4096 tokens; the smoke
 model's 3 steps on CUDA against the CPU, and a run resumed from a
@@ -30,7 +33,8 @@ jamba cut to 8 of its 32 layers; those four archs' smoke models on CUDA
 against the CPU and resumed; the SSD's gradient at chunk 128; the flash
 kernel must not launch; qwen2.5-3b's steps again with ``opt_remat_dots``,
 equal to plain remat bit for bit) and the four torch examples
-(``examples/torch_*.py`` at their counterparts' settings, the routes and
+(``examples/torch_*.py`` at their counterparts' settings, quickstart's
+pod cut to 4^3, the routes and
 the fault walkthrough's simulations held to the CPU) -- checks that the
 simulator's, the LP solver's and the model's CUDA and CPU runs agree,
 and prints one JSON line per result.
@@ -79,15 +83,28 @@ BF16_FLOPS_PER_SM_CLOCK = 4096
 SERVE_ARCH = "qwen2.5-3b"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 2048, 8, 32
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-FLASH_TIME_S = (142, 891, 2048, 4096, 8192, 32768)
+# the flash kernel's timed geometries by head dim, (Hq, Hkv, S values):
+# qwen2.5-3b's (hd 128), gemma-7b's (16/16, hd 256) and stablelm-12b's
+# (32/8, hd 160)
+FLASH_TIME = {128: (16, 2, (142, 891, 2048, 4096, 8192, 32768)),
+              256: (16, 16, (2048, 4096, 8192)),
+              160: (32, 8, (2048, 4096, 8192))}
 # the long prefill: qwen2.5-3b's prefill_32k shape
 LONG_S = 32768
 # the other families' serving paths (ROADMAP items 6-9), in this order, at
-# their published widths; jamba cut to 16 of its 32 layers (2 of its 4
-# period-8 super-blocks: 52 GB of bf16 weights of its 103 GB)
+# their published widths, then the other five registered archs: gemma-7b
+# (hd 256, 17.1 GB of bf16 weights and 3.8 GB of 4 x 2048 KV cache),
+# stablelm-12b (hd 160; 24.3 + 1.7 GB), internvl2-2b (3.8 + 0.8 GB),
+# qwen1.5-32b, phi3.5-moe. Cuts: jamba to 16 of its 32 layers (2 of its 4
+# period-8 super-blocks: 52 GB of bf16 weights of its 103 GB); qwen1.5-32b
+# to 56 of 64 (62.0 + 9.4 GB; all 64 take 70.4 + 10.7 GB, which leaves
+# under 5 GB of the card for init's temporaries and a prefill);
+# phi3.5-moe to 24 of 32 (62.9 + 0.8 GB; all 32 take 83.7 GB of weights)
 FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
-                "seamless-m4t-medium")
-FAMILY_LAYERS = {"jamba-v0.1-52b": 16}
+                "seamless-m4t-medium", "gemma-7b", "stablelm-12b",
+                "internvl2-2b", "qwen1.5-32b", "phi3.5-moe-42b-a6.6b")
+FAMILY_LAYERS = {"jamba-v0.1-52b": 16, "qwen1.5-32b": 56,
+                 "phi3.5-moe-42b-a6.6b": 24}
 FAMILY_REQUESTS, FAMILY_MAX_NEW = 6, 16
 # the port functions whose device time the family profiles split out
 FAMILY_TAGS = {"moe": ("moe_route", "moe_dispatch", "moe_experts",
@@ -149,12 +166,24 @@ REPAIR_DIMS = (8, 8, 8)
 # train_e2e at its docstring's full model (--d-model 768) for its default
 # 60 steps, not the docstring's 300 (67-116 s on the card): the time limit
 EXAMPLE_E2E_STEPS = 60
+# quickstart on a 4^3 pod (its ``run``, as the CPU tests run it), cut from
+# its counterpart's 4x4x8 for the time limit (HiGHS on the host: 122-146 s
+# at 4x4x8 on the card's machine)
+EXAMPLE_QUICKSTART_SPEC = (4, 4, 4)
 # cycles of each simulator mode's sweep at 4x4x8, cut from 1200 for the
 # time limit (the CUDA, CPU and dense runs of six modes: ~105 s at 1200)
 SIM_MODES_CYCLES = 600
-# the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 for the
-# time limit (two campaigns: ~52 s at 20)
-CHAOS_REPLAY_ARRIVALS = 10
+# the PT 8^3 fault sweep's cycles, warm-up and fault cycle, cut from 6000,
+# 2000 and 3000 for the time limit (its two sweeps: 45-59 s at 6000)
+FAULT_SWEEP_CYCLES, FAULT_SWEEP_WARMUP, FAULT_SWEEP_T_FAULT = 3000, 1000, 1500
+# the chaos campaign's arrivals at PDTT 8^3, cut from the reference's 20
+# for the time limit (its campaign: 83-104 s at 20); seed 7's 10 still
+# bring a storm, a degraded disconnection, restores and a full heal (22
+# events)
+CHAOS_ARRIVALS = 10
+# the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 (PR 25:
+# 10) for the time limit (two campaigns: ~52 s at 20, 26-41 s at 10)
+CHAOS_REPLAY_ARRIVALS = 5
 
 
 def check(cond, msg):
@@ -551,23 +580,27 @@ def phase_flash(fa, ref, prompt_lens, family_lens, flops_per_s,
                 dev="cuda"):
     """The flash kernel against its plain version at test_kernels.py's
     sweep, the non-causal and Sq < Skv cases (f32 on the CUDA-core
-    kernel, bf16 on the tensor-core one), the serving shapes (the serve
-    phase's prompt lengths among them) at hd 128 and 64, the other
-    families' head geometries at their prompt lengths, and S = 32768
-    with one head and at the serving heads in the model's layout; then
-    timed at the serving shapes from S = 142 to 32768 beside PyTorch's
-    SDPA, and the plain version where it fits. Each case passes
-    allclose at the dtype's tolerance, and in bf16 also
-    :func:`row_rel_err` at that tolerance."""
+    kernel, bf16 on the tensor-core one) at every head dim it takes, the
+    serving shapes (the serve phase's prompt lengths among them) at hd
+    128 and 64, the other families' head geometries at their prompt
+    lengths (gemma-7b's at hd 256 and stablelm-12b's at hd 160 in both
+    dtypes), and S = 32768 with one head and at the serving heads in the
+    model's layout; then timed at the serving shapes from S = 142 to
+    32768, and at gemma's and stablelm's from 2048 to 8192
+    (``FLASH_TIME``), beside PyTorch's SDPA, and the plain version where
+    it fits. Each case passes allclose at the dtype's tolerance, and in
+    bf16 also :func:`row_rel_err` at that tolerance. Returns the timed
+    rows by head dim and S, and the largest error by dtype."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((1, Hq, Hkv, S, S, hd), dt, True, False)
-             for S in (128, 256) for hd in (64, 128)
+             for S in (128, 256) for hd in fa.HEAD_DIMS
              for Hq, Hkv in ((4, 4), (4, 2), (8, 1)) for dt in (f32, bf16)]
-    cases += [((2, 4, 2, 128, 256, 64), dt, False, False)
-              for dt in (f32, bf16)]
-    cases += [((1, 4, 2, 128, 256, 64), dt, True, False) for dt in (f32, bf16)]
+    cases += [((2, 4, 2, 128, 256, hd), dt, False, False)
+              for hd in fa.HEAD_DIMS for dt in (f32, bf16)]
+    cases += [((1, 4, 2, 128, 256, hd), dt, True, False)
+              for hd in fa.HEAD_DIMS for dt in (f32, bf16)]
     cases += [((1, 16, 2, S, S, 128), bf16, True, True)
               for S in sorted({100, 512, 1000, 2048, *prompt_lens})]
     cases += [((1, 16, 2, S, S, 64), bf16, True, True) for S in (142, 891)]
@@ -580,6 +613,12 @@ def phase_flash(fa, ref, prompt_lens, family_lens, flops_per_s,
                                           (32, 8, 128, True),
                                           (16, 16, 64, True),
                                           (16, 16, 64, False))]
+    # gemma-7b (16/16, hd 256) and stablelm-12b (32/8, hd 160) likewise,
+    # in both dtypes
+    cases += [((1, Hq, Hkv, S, S, hd), dt, True, True)
+              for S in family_lens for Hq, Hkv, hd in ((16, 16, 256),
+                                                       (32, 8, 160))
+              for dt in (f32, bf16)]
     cases += [((1, 1, 1, LONG_S, LONG_S, 128), bf16, True, False),
               ((1, 16, 2, LONG_S, LONG_S, 128), bf16, True, True)]
     max_err = {f32: 0.0, bf16: 0.0}
@@ -616,26 +655,32 @@ def phase_flash(fa, ref, prompt_lens, family_lens, flops_per_s,
     torch.cuda.empty_cache()
 
     rows = {}
-    for S in FLASH_TIME_S:
-        q, k, v = _attn_inputs(g, 1, 16, 2, S, S, 128, bf16,
-                               model_layout=True)
-        reps = 20 if S <= 8192 else 5
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True), reps)
-        # the plain version's (16, S, S) f32 scores: 4.3 GB at S = 8192,
-        # 69 GB at 32768, which does not fit beside its copies
-        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True),
-                           3) if S <= 8192 else None
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps)
-        bound, by = flash_bound_ms(1, 16, 2, S, S, 128, 2, True,
-                                   flops_per_s)
-        rows[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound, bound_by=by)
-        emit(phase="flash_time", shape=[1, 16, 2, S, S, 128],
-             dtype="bfloat16", causal=True, launches_timed=reps,
-             vs_library=ms / library_ms, bound_share=bound / ms, **rows[S])
-        del q, k, v
-    torch.cuda.empty_cache()
+    for hd, (Hq, Hkv, sizes) in FLASH_TIME.items():
+        rows[hd] = {}
+        for S in sizes:
+            q, k, v = _attn_inputs(g, 1, Hq, Hkv, S, S, hd, bf16,
+                                   model_layout=True)
+            reps = 20 if S <= 8192 else 5
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True), reps)
+            # the plain version's (Hq, S, S) f32 scores: 4.3 GB at S =
+            # 8192 and 16 heads, 69 GB at 32768, which does not fit
+            # beside its copies
+            plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, True), 3) if S <= 8192 else None
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)
+            # the bound counts the function's hd (160, not the padded 192)
+            bound, by = flash_bound_ms(1, Hq, Hkv, S, S, hd, 2, True,
+                                       flops_per_s)
+            rows[hd][S] = dict(ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=bound,
+                               bound_by=by)
+            emit(phase="flash_time", shape=[1, Hq, Hkv, S, S, hd],
+                 dtype="bfloat16", causal=True, launches_timed=reps,
+                 vs_library=ms / library_ms, bound_share=bound / ms,
+                 **rows[hd][S])
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -818,12 +863,15 @@ def attention_layers(cfg) -> int:
     return sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
 
 
-def prefill_batch(cfg, prompt, dev, frames=None):
+def prefill_batch(cfg, prompt, dev, frames=None, patches=None):
     """``prefill_fn``'s batch for one prompt; an encoder-decoder takes
-    ``frames`` (zeros of the prompt's length, as the Server feeds)."""
+    ``frames`` (zeros of the prompt's length, as the Server feeds), a
+    vision arch ``patches`` where given (the Server gives none)."""
     tokens = torch.as_tensor(prompt, device=dev)[None, :]
     if cfg.family != "encdec":
-        return {"tokens": tokens}
+        if patches is None:
+            return {"tokens": tokens}
+        return {"tokens": tokens, "patches": patches}
     if frames is None:
         frames = torch.zeros((1, tokens.shape[1], cfg.d_model),
                              dtype=torch.bfloat16, device=dev)
@@ -876,6 +924,12 @@ def phase_serve_family(fa, PM, L, Request, Server, cfg, dev="cuda"):
     want = attention_layers(cfg) * FAMILY_REQUESTS
     runs = []
     for _ in range(2):
+        # the first run's Server (a cycle through its wrapped methods) and
+        # its cache go before the second's: qwen1.5-32b's cut holds 62 GB
+        # of weights and 9.4 GB of cache, no room for two caches
+        server = prefill_one = None
+        gc.collect()
+        torch.cuda.empty_cache()
         server = Server(cfg, params, n_slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN, device=dev)
         reqs = [Request(i, p, FAMILY_MAX_NEW) for i, p in enumerate(prompts)]
@@ -988,7 +1042,9 @@ def family_check_config(get_config, cfg):
 
 def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
     """One set of weights (:func:`family_check_config`): prefill of a
-    100-token prompt (an encoder-decoder's with 100 normal frames) and 3
+    100-token prompt (an encoder-decoder's with 100 normal frames; a
+    vision arch's of ``n_vision_tokens`` tokens with that many normal
+    patch embeddings, which the Server does not feed) and 3
     teacher-forced decode steps on the CPU (plain attention) and on CUDA
     (the kernel); logits agree within the stated bf16 tolerance. Where
     the two devices route a token to other experts, the line and the
@@ -996,11 +1052,14 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
     cfg2 = family_check_config(get_config, cfg)
     gpu = PM.init_params(cfg2, seed=0, device=dev)
     cpu = copy.deepcopy(gpu).to("cpu")
+    S = max(100, cfg2.n_vision_tokens)
     rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (1, 104)))
+    toks = torch.as_tensor(rng.integers(0, cfg2.vocab, (1, S + 4)))
     frames = torch.as_tensor(rng.standard_normal(
-        (1, 100, cfg2.d_model)).astype(np.float32)).to(torch.bfloat16)
-    S = 100
+        (1, S, cfg2.d_model)).astype(np.float32)).to(torch.bfloat16)
+    patches = torch.as_tensor(rng.standard_normal(
+        (1, cfg2.n_vision_tokens, cfg2.d_model)).astype(np.float32)) \
+        if cfg2.n_vision_tokens else None
     routes = {}
     outs = []
     with torch.inference_mode():
@@ -1010,9 +1069,10 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
             try:
                 t = toks.to(d)
                 logits, caches = PM.prefill_fn(
-                    cfg2, model, prefill_batch(cfg2, t[0, :S], d,
-                                               frames.to(d)),
-                    cache_len=104)
+                    cfg2, model, prefill_batch(
+                        cfg2, t[0, :S], d, frames.to(d),
+                        None if patches is None else patches.to(d)),
+                    cache_len=S + 4)
                 steps = [logits]
                 for i in range(3):
                     logits, caches = PM.decode_fn(
@@ -1029,7 +1089,8 @@ def phase_serve_family_cpu_vs_gpu(PM, L, get_config, cfg, dev="cuda"):
     emit(phase="serve_family_cpu_vs_gpu", arch=cfg.name,
          cut=dict(n_layers=cfg2.n_layers, enc_layers=cfg2.enc_layers,
                   dec_layers=cfg2.dec_layers, d_model=cfg2.d_model),
-         prompt_len=S, decode_steps=3, max_abs_err=errs,
+         prompt_len=S, patches=None if patches is None
+         else list(patches.shape), decode_steps=3, max_abs_err=errs,
          argmax_agree=agree, moe_calls=len(routes["cpu"]),
          expert_choice_differs=other, rtol=MODEL_RTOL, atol=MODEL_ATOL,
          logit_abs_max=float(outs[0][0].abs().max()))
@@ -1504,7 +1565,7 @@ def phase_train_family_cpu_vs_gpu(get_config, L, dev="cuda"):
     from repro_torch.optim import adamw
     from repro_torch.train.loop import TrainConfig, make_step
     oc = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    for arch in FAMILY_ARCHS:
+    for arch in TRAIN_FAMILY_ARCHS:
         cfg = get_config(arch).smoke_model()
         init = PM.init_params(cfg, seed=0, device="cpu")
         data = SyntheticLM(DataConfig(cfg.vocab, 32, 4))
@@ -1722,8 +1783,9 @@ def phase_sim_modes(PNS, PT, PF, TR, route_pod, PipelineConfig,
 
 
 def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
-                      dims=(8, 8, 8), cycles=6000, warmup=2000,
-                      t_fault=3000, prof_cycles=512,
+                      dims=(8, 8, 8), cycles=FAULT_SWEEP_CYCLES,
+                      warmup=FAULT_SWEEP_WARMUP,
+                      t_fault=FAULT_SWEEP_T_FAULT, prof_cycles=512,
                       sat=dict(step=0.005, max_rate=0.08, cycles=1500,
                                warmup=500), dev="cuda", profile=None):
     """The first OCS colour dies at ``t_fault`` under static and adaptive
@@ -1826,7 +1888,8 @@ def phase_repair(PR, PF, PT, mp, dims=REPAIR_DIMS, dev="cuda"):
 
 def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
                 dev="cuda"):
-    """The reference's acceptance campaign on PDTT ``dims`` with netsim
+    """The reference's acceptance campaign on PDTT ``dims`` (its
+    arrivals cut to CHAOS_ARRIVALS) with netsim
     probes on the card: every invariant green, a coalesced storm, a
     degraded disconnection, a restore and a full heal within 1.10x of the
     cold build's l_max; then, at ``replay_dims``, two campaigns from one
@@ -1838,7 +1901,7 @@ def phase_chaos(PR, PX, PT, mp, dims=(8, 8, 8), replay_dims=(4, 4, 4),
                                device=dev)
     build_s = time.perf_counter() - t0
     launches = mp.hop_launches - launches0
-    sched = PX.generate_schedule(st.at, n_arrivals=20, seed=7)
+    sched = PX.generate_schedule(st.at, n_arrivals=CHAOS_ARRIVALS, seed=7)
     t0 = time.perf_counter()
     res = PX.run_campaign(st, sched, coalesce=1.0, probe_every=5,
                           device=dev)
@@ -2512,12 +2575,15 @@ def load_example(name: str):
 
 
 def phase_examples(fa, mp, PT, route_pod, PipelineConfig,
-                   e2e_steps=EXAMPLE_E2E_STEPS, dev="cuda"):
+                   e2e_steps=EXAMPLE_E2E_STEPS,
+                   quickstart_spec=EXAMPLE_QUICKSTART_SPEC, dev="cuda"):
     """The four torch examples in this process, at their counterparts'
     settings, each through its ``main`` with the kernels' counts from
-    zero: quickstart (4x4x8), fault_tolerant_pod whole, serve_batched's
-    defaults, train_e2e at its docstring's full model (``--d-model
-    768``) for ``e2e_steps`` steps. Their own asserts hold; quickstart's
+    zero: quickstart through its ``run`` on ``quickstart_spec`` (its
+    counterpart's 4x4x8 cut for the time limit), fault_tolerant_pod
+    whole, serve_batched's defaults, train_e2e at its docstring's full
+    model (``--d-model 768``) for ``e2e_steps`` steps. Their own asserts
+    hold; quickstart's
     route equals a CPU ``route_pod`` of the fabric it synthesized;
     fault_tolerant_pod's network half (re-route, repair and the four
     patterns' delivered and offered rates) equals a CPU run of the same
@@ -2527,11 +2593,11 @@ def phase_examples(fa, mp, PT, route_pod, PipelineConfig,
     argv = [] if dev == "cuda" else ["--device", str(dev)]
     launches, seconds = {}, {}
 
-    def run(name, *args):
+    def run(name, *args, call=None):
         mp.launches = mp.hop_launches = fa.launches = 0
         t0 = time.perf_counter()
         mod = load_example(name)
-        out = mod.main(argv + list(args))
+        out = call(mod) if call else mod.main(argv + list(args))
         if dev == "cuda":
             torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
@@ -2542,7 +2608,8 @@ def phase_examples(fa, mp, PT, route_pod, PipelineConfig,
         torch.cuda.empty_cache()
         return mod, out
 
-    _, qs = run("torch_quickstart")
+    _, qs = run("torch_quickstart",
+                call=lambda mod: mod.run(quickstart_spec, device=dev))
     topo = PT.Topology(PT.Pod(qs["spec"]), [tuple(e) for e in qs["optical"]])
     cpu = route_pod(topo, PipelineConfig(
         robust=True, K=4, engine="array", local_search_rounds=3,
@@ -2736,8 +2803,9 @@ def main() -> int:
         line.strip() for line in nvcc.LOGS.get("csr_spmv", "").splitlines()
         if "Used" in line or "spill" in line])
     sass = sass_counts(fa.library()._name)
-    ptxas = [line for line in nvcc.LOGS.get("flash_attention", "").splitlines()
-             if "ptxas" in line]
+    ptxas = [line.strip() for line in
+             nvcc.LOGS.get("flash_attention", "").splitlines()
+             if "ptxas" in line or "spill" in line]
     emit(phase="flash_build", ptxas=ptxas, sass_counts=sass)
     check(ptxas, "no ptxas report for the flash library")
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
@@ -2903,7 +2971,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t.append(time.perf_counter())
     phase_train_family_cpu_vs_gpu(get_config, L)
-    for arch in FAMILY_ARCHS:
+    for arch in TRAIN_FAMILY_ARCHS:
         phase_train_resume(get_config, arch=arch,
                            phase="train_family_resume")
     phase_ssd_grad_128(L)
@@ -2939,7 +3007,7 @@ def main() -> int:
             "device_ms_source_by_n": {n: r["device_ms_source"]
                                       for n, r in rows[path].items()}}
 
-    f = flash_rows[2048]
+    f = flash_rows[128][2048]
     print(json.dumps({"kernels": [
         minplus_entry("f32", "minplus", launches, max_err),
         dict(minplus_entry("hops", "minplus_hops", hop_launches, hop_err),
@@ -2966,9 +3034,13 @@ def main() -> int:
         "ms": f["ms"], "plain_ms": f["plain_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": f["library_ms"],
-        "ms_by_S": {S: r["ms"] for S, r in flash_rows.items()},
+        "ms_by_S": {S: r["ms"] for S, r in flash_rows[128].items()},
         "library_ms_by_S": {S: r["library_ms"]
-                            for S, r in flash_rows.items()}}, {
+                            for S, r in flash_rows[128].items()},
+        "by_head_dim": {hd: {"shape": [1, Hq, Hkv, "S", "S", hd],
+                             "by_S": flash_rows[hd]}
+                        for hd, (Hq, Hkv, _) in FLASH_TIME.items()
+                        if hd != 128}}, {
         "name": "csr_spmv_f64", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/csr_spmv.cu",
         "replaces": "src/repro/core/lp.py:94", "launches": spmv_launches,

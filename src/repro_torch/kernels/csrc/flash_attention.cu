@@ -20,13 +20,20 @@
 // flops per visible (q, k) pair, 1.7e10 at S = 2048 (0.016 ms at 989
 // TFLOP/s) against 19 MB of q, k, v, o (0.006 ms at 3.35 TB/s).
 //
-// bf16 (hd 64, 128): both products run on the tensor cores with wgmma.
+// Head dims 64, 128, 160 and 256 (the registered archs': 160 stablelm-12b,
+// 256 gemma-7b). A tile holds hd rounded up to a multiple of 64 (HDP:
+// 160 -> 192) columns, the padding zero: Q.K^T runs over the hd columns,
+// P.V over all HDP (at hd 160 a fifth of its products multiply zeros),
+// and only the hd columns are stored.
+//
+// bf16: both products run on the tensor cores with wgmma.
 // A block is three warpgroups. Warpgroups 0 and 1 each own 64 q rows of a
 // 128-row tile; one thread of warpgroup 2 issues TMA loads -- q once,
-// then 128-row K and V tiles into a two-stage ring in shared memory, with
+// then K and V tiles (128 rows up to hd 128, 64 above: Layout) into a
+// two-stage ring in shared memory, with
 // full and empty mbarriers for K and for V of each stage -- and gives its
 // registers to the consumers (setmaxnreg 40 / 232). A consumer computes
-// S = Q.K^T with m64n128k16 (A = Q and B = K from shared memory, both
+// S = Q.K^T with m64nBKk16 (A = Q and B = K from shared memory, both
 // K-major) and keeps the softmax in registers: each row lives in the 4
 // lanes of a quad, which reduce the row max by shuffles; masking runs only
 // on tiles that the diagonal or the Skv tail crosses; the scale times
@@ -34,7 +41,8 @@
 // sums of the f32 P (reduced once at the end). P is rounded to bf16 and
 // fed from registers as wgmma's A operand (the accumulator fragment of S
 // is the A fragment of P), and O += P.V reads V from shared memory
-// MN-major (transpose bit). The two products overlap the softmax: tile
+// MN-major (transpose bit), in m64n128k16 products (and one m64n64k16 where
+// HDP is an odd multiple of 64). The two products overlap the softmax: tile
 // t's Q.K_t and tile t-1's P.V_(t-1) are issued together, the softmax of
 // tile t runs while P.V_(t-1) is still on the tensor cores, and K_t and
 // V_(t-1) go back to the producer as soon as their product completes.
@@ -52,10 +60,12 @@
 // digits. 256 threads in a 16 x 16 grid; thread (ty, tx) owns q rows
 // ty*4..ty*4+3: their 4 x 4 scores at kv columns tx + 16c of the tile,
 // their softmax state (reduced by warp shuffles) and their output columns
-// tx*4.. (+64 for hd = 128) in registers. q (times scale), then each K
+// tx*4 + 64c (c < HDP / 64) in registers. q (times scale), then each K
 // tile and V tile, are staged in shared memory as f32 with rows padded to
-// hd + 4 floats, so every inner-loop read is a conflict-free float4; P
-// goes through shared memory between the two products.
+// HDP + 4 floats, so every inner-loop read is a conflict-free float4; P
+// goes through shared memory between the two products. Above hd 128 the
+// tiles take 115 KB (hd 160) and 147 KB (hd 256), so an SM holds one
+// block instead of two.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,24 +94,35 @@ struct Geometry {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// A tile's columns in shared memory and registers: hd rounded up to a
+// multiple of 64 (160 -> 192), the padding zero.
+template <int HD>
+__host__ __device__ constexpr int padded() { return (HD + 63) / 64 * 64; }
+
 // Rows r0 .. r0+63 of one head (row stride `ss` elements) into `dst` as
-// f32 times `mul`, row stride LD; rows at or past `n` are zero.
-template <typename T, int HD, int LD>
+// f32 times `mul`, row stride LD; rows at or past `n`, and the padding
+// columns HD .. HDP-1, are zero.
+template <typename T, int HD, int HDP, int LD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long ss, int r0, int n,
                                           float mul) {
-  for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD, gr = r0 + r;
-    dst[r * LD + d] = gr < n ? to_f32(src[gr * ss + d]) * mul : 0.f;
+  for (int e = threadIdx.x; e < 64 * HDP; e += THREADS) {
+    const int r = e / HDP, d = e % HDP, gr = r0 + r;
+    dst[r * LD + d] =
+        gr < n && d < HD ? to_f32(src[gr * ss + d]) * mul : 0.f;
   }
 }
 
+// Two blocks an SM up to hd 128; above, one (the f32 tiles take 115 KB
+// at hd 160 and 147 KB at hd 256 of the SM's 228 KB), with the
+// registers a thread that one block leaves.
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, HD <= 128 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Geometry g) {
-  constexpr int LD = HD + 4;   // 16-byte rows; float4 reads conflict-free
-  constexpr int DC = HD / 64;  // float4 output column groups per thread
+  constexpr int HDP = padded<HD>();
+  constexpr int LD = HDP + 4;   // 16-byte rows; float4 reads conflict-free
+  constexpr int DC = HDP / 64;  // float4 output column groups per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // BQ x LD: q * scale
   float* KVs = Qs + BQ * LD;    // BK x LD: this tile's K, then its V
@@ -114,8 +135,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * g.k_sb + hk * g.k_sh;
   const T* vp = v + b * g.v_sb + hk * g.v_sh;
 
-  load_tile<T, HD, LD>(Qs, q + b * g.q_sb + h * g.q_sh, g.q_ss, q0, g.Sq,
-                       g.scale);
+  load_tile<T, HD, HDP, LD>(Qs, q + b * g.q_sb + h * g.q_sh, g.q_ss, q0,
+                            g.Sq, g.scale);
 
   float acc[TR][4 * DC], m[TR], l[TR];
 #pragma unroll
@@ -130,7 +151,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = g.causal ? min(g.Skv, q_last + 1) : g.Skv;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // Qs written; the last tile's V reads are done
-    load_tile<T, HD, LD>(KVs, kp, g.k_ss, k0, g.Skv, 1.f);
+    load_tile<T, HD, HDP, LD>(KVs, kp, g.k_ss, k0, g.Skv, 1.f);
     __syncthreads();
 
     float s[TR][TC];
@@ -193,7 +214,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         Ps[(ty * TR + r) * PS_LD + tx + 16 * c] = s[r][c];
     }
     __syncthreads();  // P written; the K reads are done
-    load_tile<T, HD, LD>(KVs, vp, g.v_ss, k0, g.Skv, 1.f);
+    load_tile<T, HD, HDP, LD>(KVs, vp, g.v_ss, k0, g.Skv, 1.f);
     __syncthreads();
 
 #pragma unroll 2
@@ -229,18 +250,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= g.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int cg = 0; cg < DC; ++cg)
+    for (int cg = 0; cg < DC; ++cg) {
+      if (cg * 64 + tx * 4 >= HD) continue;  // a padding column group
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         store(&op[row * g.o_ss + cg * 64 + tx * 4 + e],
               acc[r][cg * 4 + e] / den);
+    }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, const Geometry& g, cudaStream_t stream) {
-  constexpr int LD = HD + 4;
+  constexpr int LD = padded<HD>() + 4;
   const size_t smem = sizeof(float) * (BQ * LD + BK * LD + BQ * PS_LD);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -257,7 +280,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 constexpr int BQ = 128;          // q rows per block, 64 per consumer warpgroup
-constexpr int BK = 128;          // kv rows per tile
 constexpr int STAGES = 2;        // K/V ring depth
 constexpr int CONSUMER_WARPS = 8;
 constexpr int THREADS = 384;     // 2 consumer warpgroups + 1 producer
@@ -266,13 +288,22 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets from the 1024-aligned base of dynamic shared memory. Every
-// tile is [hd / 64 column chunks][rows][64 bf16], each chunk the layout
+// tile is [HDP / 64 column chunks][rows][64 bf16], each chunk the layout
 // TMA writes with 128-byte swizzle (16-byte unit u of row r at u ^ r % 8).
+// HDP is hd padded to a multiple of 64: at hd 160 the third chunk's
+// columns 160-191 lie outside the tensor map, and TMA writes them as
+// zeros. Up to hd 128 a kv tile is 128 rows; above, 64, so that Q and
+// the two-stage ring fit a block's 227 KB (hd 256: 64 + 128 KB, where
+// 128-row tiles would take 64 + 256 KB) and the consumers' registers
+// (hd 256: 128 of O, 32 of S and 16 of P a thread).
 template <int HD>
 struct Layout {
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;  // one K or V tile
-  static constexpr int RING = Q_BYTES;          // stage s: K, then V
+  static constexpr int HDP = padded<HD>();
+  static constexpr int BK = HD <= 128 ? 128 : 64;  // kv rows per tile
+  static constexpr int CHUNKS = HDP / 64;
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;  // one K or V tile
+  static constexpr int RING = Q_BYTES;           // stage s: K, then V
   static constexpr int BARS = RING + STAGES * 2 * KV_BYTES;
   // barriers: full Q; full K, full V, empty K, empty V of each stage
   static constexpr int N_BARS = 1 + 4 * STAGES;
@@ -395,15 +426,23 @@ __device__ __forceinline__ float ex2(float x) {
     "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
     "%56, %57, %58, %59, %60, %61, %62, %63}"
 
-// d (64 x 128, f32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x 128),
-// both bf16 in shared memory, K-major.
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
+// d (64 x N, f32) = (accumulate ? d : 0) + A (64 x 16) . B (16 x N),
+// both bf16 in shared memory, K-major; N = 128 or 64.
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                       int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : D64 : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32 : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x N),
@@ -513,7 +552,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, Geometry g) {
   using L = Layout<HD>;
-  constexpr int CHUNKS = HD / 64;
+  constexpr int HDP = L::HDP, BK = L::BK, CHUNKS = L::CHUNKS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   // barriers, 8 bytes each: full Q; then per stage s full K, full V,
@@ -586,22 +625,32 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     auto masked = [&](int k0) {
       return k0 + BK > g.Skv || (g.causal && k0 + BK - 1 > wg_first);
     };
-    // S = Q . K^T from the K tile at `kt`
+    // S = Q . K^T from the K tile at `kt`, over the hd columns only (the
+    // padding is zero in both)
     auto qk = [&](float (&sc)[BK / 2], uint32_t kt) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        mma_ss_n128(sc,
-                    desc(qa + kk / 4 * BQ * ROW + kk % 4 * 32, 16, 8 * ROW),
-                    desc(kt + kk / 4 * BK * ROW + kk % 4 * 32, 16, 8 * ROW),
-                    kk > 0);
+        mma_ss(sc, desc(qa + kk / 4 * BQ * ROW + kk % 4 * 32, 16, 8 * ROW),
+               desc(kt + kk / 4 * BK * ROW + kk % 4 * 32, 16, 8 * ROW),
+               kk > 0);
       wgmma_commit();
     };
-    // O += P . V from the V tile at `vt` (MN-major)
-    auto pv = [&](float (&acc)[HD / 2], const uint32_t (&pa)[BK / 16][4],
+    // O += P . V from the V tile at `vt` (MN-major), over all HDP columns
+    // in products of 128 columns (accumulator fragment 64 c .. of columns
+    // 128 c ..) and, where HDP is an odd multiple of 64, one of 64
+    auto pv = [&](float (&acc)[HDP / 2], const uint32_t (&pa)[BK / 16][4],
                   uint32_t vt) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs(acc, pa[kk], desc(vt + kk * 16 * ROW, BK * ROW, 8 * ROW));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t vk = vt + kk * 16 * ROW;
+#pragma unroll
+        for (int c = 0; c < HDP / 128; ++c)
+          mma_rs(*reinterpret_cast<float(*)[64]>(&acc[64 * c]), pa[kk],
+                 desc(vk + 2 * c * BK * ROW, BK * ROW, 8 * ROW));
+        if constexpr (HDP % 128 != 0)
+          mma_rs(*reinterpret_cast<float(*)[32]>(&acc[HDP / 2 - 32]), pa[kk],
+                 desc(vk + (CHUNKS - 1) * BK * ROW, BK * ROW, 8 * ROW));
+      }
       wgmma_commit();
     };
     auto release = [&](uint32_t bar) {
@@ -609,9 +658,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(bar);  // this warp is done with the tile
     };
 
-    float acc[HD / 2];  // O: m64 x HD fragment
+    float acc[HDP / 2];  // O: m64 x HDP fragment
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
     float sc[BK / 2];  // S, then P, of one tile: m64 x BK fragment
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -662,7 +711,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(acc);
 
-    // epilogue: o = acc / max(l, 1e-30), rows below Sq only
+    // epilogue: o = acc / max(l, 1e-30), rows below Sq and the hd
+    // columns only
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -671,7 +721,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
     __nv_bfloat16* op = o + b * g.o_sb + h * g.o_sh;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < HD / 8; ++i) {  // fragment i: columns 8 i ..
       const int col = 8 * i + col0;
       if (qpos0 < g.Sq)
         *reinterpret_cast<__nv_bfloat162*>(&op[qpos0 * g.o_ss + col]) =
@@ -759,13 +809,16 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int hd, int B, int H,
 constexpr int MAX_DEVICES = 64;  // devices whose opt-in is remembered
 
 // Returns a CUDA error (0 = launched), or minus the CUresult of a failed
-// tensor-map encode.
+// tensor-map encode. The maps span the hd columns; a box past them (hd
+// 160's third chunk) is filled with zeros and still counts its full bytes
+// toward the barrier's transaction.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Skv, const long long* st, float scale,
            int causal, int device, cudaStream_t stream) {
   Geometry g{Hq, Hkv, Sq, Skv, st[9], st[10], st[11], 0, 0, 0, scale, causal};
   CUtensorMap tq, tk, tv;
+  constexpr int BK = Layout<HD>::BK;
   CUresult res = encode_map(&tq, q, HD, B, Hq, Sq, st[0], st[1], st[2], BQ,
                             &g.perm_q);
   if (res == CUDA_SUCCESS)
@@ -802,9 +855,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // and o (the shape of q) on `device`, all float32 (bf16 == 0) or all
 // bfloat16 (bf16 == 1), addressed by `strides`: 12 element strides,
 // (batch, head, position) of q, k, v, o in that order, hd contiguous.
-// hd is 64 or 128 and Hq % Hkv == 0; for bf16, q, k and v start on 16
-// bytes and their strides are multiples of 8 elements (the wrapper
-// checks). Launches on `stream` and returns the CUDA error (0 =
+// hd is 64, 128, 160 or 256 and Hq % Hkv == 0; for bf16, q, k and v
+// start on 16 bytes and their strides are multiples of 8 elements (the
+// wrapper checks). Launches on `stream` and returns the CUDA error (0 =
 // launched), or minus the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int bf16, int hd,
@@ -814,20 +867,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16 && hd == 64)
-    return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                          causal, device, s);
-  if (bf16 && hd == 128)
-    return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale,
-                           causal, device, s);
+  if (bf16) {
+    switch (hd) {
+      case 64: return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides,
+                                     scale, causal, device, s);
+      case 128: return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       strides, scale, causal, device, s);
+      case 160: return tc::launch<160>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       strides, scale, causal, device, s);
+      case 256: return tc::launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                       strides, scale, causal, device, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const Geometry g{Hq, Hkv, Sq, Skv,
                    strides[0], strides[1], strides[2],
                    strides[3], strides[4], strides[5],
                    strides[6], strides[7], strides[8],
                    strides[9], strides[10], strides[11],
                    scale, causal};
-  if (!bf16 && hd == 64) err = launch<float, 64>(q, k, v, o, B, g, s);
-  else if (!bf16 && hd == 128) err = launch<float, 128>(q, k, v, o, B, g, s);
-  else err = cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: err = launch<float, 64>(q, k, v, o, B, g, s); break;
+    case 128: err = launch<float, 128>(q, k, v, o, B, g, s); break;
+    case 160: err = launch<float, 160>(q, k, v, o, B, g, s); break;
+    case 256: err = launch<float, 256>(q, k, v, o, B, g, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

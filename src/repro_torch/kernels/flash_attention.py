@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # kernel launches since the last reset

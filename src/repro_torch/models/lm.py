@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
-    create_selective_checkpoint_contexts
+    create_selective_checkpoint_contexts, noop_context_fn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -187,46 +187,68 @@ def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def remat_plan(cfg) -> List[Optional[str]]:
-    """How the training forward runs each layer, as the reference's plan
-    (``scan_blocks`` in ``repro.models.lm.forward``): None (no remat) for
-    the ``first_k_dense`` head layers and everything without
-    ``cfg.remat``; ``"plain"`` (recompute the whole layer) for a hybrid's
-    layers and a flat body without ``cfg.opt_remat_dots``; ``"dots"``
-    (keep :data:`DOTS`' outputs) for a flat body with it."""
+    """How the training forward runs each unit, as the reference's plan
+    (``scan_blocks`` in ``repro.models.lm.forward``). A unit is a layer,
+    or for a hybrid a super-block of ``hybrid_period`` layers, the
+    reference's scan body. None (no remat) for the ``first_k_dense`` head
+    layers and everything without ``cfg.remat``; ``"plain"`` (recompute
+    the whole unit) for a hybrid's super-blocks and a flat body without
+    ``cfg.opt_remat_dots``; ``"dots"`` (keep :data:`DOTS`' outputs) for a
+    flat body with it."""
     n = len(layer_kinds(cfg))
+    if cfg.family == "hybrid":
+        return [("plain" if cfg.remat else None)] * (n // cfg.hybrid_period)
     if not cfg.remat:
         return [None] * n
-    if cfg.family == "hybrid":
-        return ["plain"] * n
     body = "dots" if cfg.opt_remat_dots else "plain"
     return [None] * cfg.first_k_dense + [body] * (n - cfg.first_k_dense)
+
+
+def run_layers(blocks: nn.ModuleList, x: torch.Tensor,
+               positions: torch.Tensor, aux: torch.Tensor):
+    """One unit of :func:`remat_plan`, its layers in order (for a hybrid
+    the reference's scan body): (x, ``aux`` plus their aux losses, added
+    one by one)."""
+    for blk in blocks:
+        x, a = blk(x, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def run_blocks(model: DecoderLM, x: torch.Tensor, positions: torch.Tensor):
+    """The training forward's layers on the embedded x: (x, the MoE
+    layers' aux loss summed in float32). Each unit of :func:`remat_plan`
+    runs under ``torch.utils.checkpoint`` as the plan says, which keeps
+    only the unit's inputs, and is recomputed in the backward, whole or
+    but for the 2-D products it kept. An MoE layer's collectives
+    (parallel.api, on a mesh spread over processes) run again in the
+    recompute: every rank recomputes the same layers in the same order."""
+    cfg = model.cfg
+    per = cfg.hybrid_period if cfg.family == "hybrid" else 1
+    dots = functools.partial(create_selective_checkpoint_contexts, save_dots)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, remat in enumerate(remat_plan(cfg)):
+        unit = functools.partial(run_layers,
+                                 model.blocks[i * per:(i + 1) * per])
+        if remat is None:
+            x, aux = unit(x, positions, aux)
+        else:
+            x, aux = checkpoint(unit, x, positions, aux, use_reentrant=False,
+                                context_fn=dots if remat == "dots"
+                                else noop_context_fn)
+    return x, aux
 
 
 def forward(model: DecoderLM, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None):
     """The training forward: tokens (B, S) -> (logits (B, S, V), the MoE
     layers' aux loss summed in float32). Attention runs
-    ``layers.blocked_attention``, which autograd differentiates. Each
-    layer runs under ``torch.utils.checkpoint`` as :func:`remat_plan`
-    says, and is recomputed in the backward, whole or but for the 2-D
-    products it kept."""
+    ``layers.blocked_attention``, which autograd differentiates; the
+    layers run through :func:`run_blocks`."""
     x = _embed(model, tokens, extra_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    dots = functools.partial(create_selective_checkpoint_contexts, save_dots)
-    for blk, remat in zip(model.blocks, remat_plan(model.cfg)):
-        # an MoE layer's collectives (parallel.api, on a mesh spread over
-        # processes) run again in the backward's recompute: every rank
-        # recomputes the same layers in the same order
-        if remat == "dots":
-            x, aux = checkpoint(blk, x, positions, use_reentrant=False,
-                                context_fn=dots)
-        elif remat == "plain":
-            x, aux = checkpoint(blk, x, positions, use_reentrant=False)
-        else:
-            x, aux = blk(x, positions)
-        if aux is not None:
-            aux_total = aux_total + aux
+    x, aux_total = run_blocks(model, x, positions)
     return L.apply_norm(model.cfg.norm, x, model.ln_f) @ model.head(), \
         aux_total
 

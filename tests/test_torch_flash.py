@@ -6,12 +6,15 @@ version on the card by chip_smoke.py). Held here: the plain version
 agrees with the Pallas kernel (interpret mode) over the sweep of
 ``tests/test_kernels.py``, the non-causal case and a causal Sq < Skv
 case, and with the JAX ``ref.flash_attention_ref`` where the two causal
-alignments agree (Sq == Skv), ragged S = 100 included. Tolerances are
+alignments agree (Sq == Skv), ragged S = 100 included; the same at the
+head dims 160 and 256 (stablelm-12b's, gemma-7b's). Tolerances are
 ``test_kernels.py``'s: 2e-5 for float32, 2e-2 for bfloat16 (one bf16
 rounding of an output of magnitude ~1 is up to 4e-3). The bf16 kernel's
-own rounding points, rebuilt here in plain torch, are held to the
-Pallas kernel at the same 2e-2.
+own rounding points, rebuilt here in plain torch with its tiles (128
+kv rows up to hd 128, 64 above; columns padded to a multiple of 64), are
+held to the Pallas kernel at the same 2e-2.
 """
+import re
 import math
 
 import jax.numpy as jnp
@@ -46,7 +49,7 @@ def _close(got: torch.Tensor, want, dtype):
 
 
 @pytest.mark.parametrize("S", [128, 256])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
 @pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_ref_matches_pallas_kernel_sweep(S, hd, heads, dtype):
@@ -146,23 +149,26 @@ def test_kernel_input_checks_accept_the_serving_layout():
         kfa.check_inputs(strided, kv.transpose(1, 2), kv.transpose(1, 2))
 
 
-def _tensor_core_rounding(q, k, v, causal, bk=128):
+def _tensor_core_rounding(q, k, v, causal, bk=128, hdp=None):
     """The bf16 tensor-core kernel's arithmetic in plain torch, tile by
     tile: bf16 products accumulated in f32, masked scores -1e30, the scale
     times log2(e) (f32) applied after the product inside exp2, an online
     softmax from m = -1e30 and l = 0, l summed from the f32 P, P rounded
     to bf16 for P.V with f32 accumulation, and acc / max(l, 1e-30) in
-    q's dtype."""
+    q's dtype. ``hdp``: V's columns padded with zeros to that many, as in
+    the kernel's shared memory (Q.K^T runs over the hd columns only); the
+    output keeps the hd columns."""
     B, Hq, Sq, hd = q.shape
     Skv = k.shape[2]
     rep = Hq // k.shape[1]
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
+    vf = torch.nn.functional.pad(vf, (0, (hdp or hd) - hd))
     sl2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
            * torch.tensor(math.log2(math.e), dtype=torch.float32))
     m = torch.full((B, Hq, Sq, 1), ref.NEG_INF)
     l = torch.zeros((B, Hq, Sq, 1))
-    acc = torch.zeros((B, Hq, Sq, hd))
+    acc = torch.zeros((B, Hq, Sq, hdp or hd))
     qpos = torch.arange(Sq)[:, None]
     for k0 in range(0, Skv, bk):
         s = q.float() @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
@@ -175,23 +181,47 @@ def _tensor_core_rounding(q, k, v, causal, bk=128):
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return (acc / l.clamp_min(1e-30))[..., :hd].to(q.dtype)
+
+
+def _tile(hd):
+    """(kv rows, columns) of the bf16 kernel's tiles at head dim ``hd``:
+    ``Layout<HD>``'s BK and HDP."""
+    return (128 if hd <= 128 else 64), -(-hd // 64) * 64
+
+
+def test_tile_rule_is_the_kernels():
+    """``_tile`` states the source's rule: kv tiles of 128 rows up to hd
+    128 and 64 above, columns padded to a multiple of 64."""
+    src = kfa.SOURCE.read_text()
+    assert re.search(r"BK = HD <= 128 \? 128 : 64;", src)
+    assert re.search(r"return \(HD \+ 63\) / 64 \* 64;", src)
+    assert [_tile(hd) for hd in kfa.HEAD_DIMS] == \
+        [(128, 64), (128, 128), (64, 192), (64, 256)]
 
 
 _TC_SHAPES = ([(1, Hq, Hkv, S, S, hd, True) for S in (128, 256)
                for hd in (64, 128) for Hq, Hkv in ((4, 4), (4, 2), (8, 1))]
               + [(2, 4, 2, 128, 256, 64, False),
-                 (1, 4, 2, 128, 256, 64, True)])
+                 (1, 4, 2, 128, 256, 64, True)]
+              # hd 160 (64 kv rows, V padded to 192 columns) and 256 (64
+              # kv rows): causal MHA and GQA, non-causal and causal Sq < Skv
+              + [(B, Hq, Hkv, Sq, Skv, hd, causal) for hd in (160, 256)
+                 for B, Hq, Hkv, Sq, Skv, causal in (
+                     (1, 4, 4, 128, 128, True), (1, 8, 2, 256, 256, True),
+                     (2, 4, 2, 128, 256, False), (1, 4, 2, 128, 256, True))])
 
 
 @pytest.mark.parametrize("B, Hq, Hkv, Sq, Skv, hd, causal", _TC_SHAPES)
 def test_tensor_core_rounding_matches_pallas_kernel(B, Hq, Hkv, Sq, Skv, hd,
                                                     causal):
-    """The bf16 kernel's rounding points fit the Pallas kernel's bf16
-    tolerance over the sweep, the non-causal and the Sq < Skv shapes."""
+    """The bf16 kernel's rounding points, with its tiles at each head
+    dim, fit the Pallas kernel's bf16 tolerance over the sweep, the
+    non-causal and the Sq < Skv shapes."""
     (jq, q), (jk, k), (jv, v) = _qkv(B, Hq, Hkv, Sq, Skv, hd, "bfloat16",
                                      seed=7)
-    got = _tensor_core_rounding(q, k, v, causal)
+    bk, hdp = _tile(hd)
+    got = _tensor_core_rounding(q, k, v, causal, bk=bk, hdp=hdp)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     _close(got, pallas_flash(jq, jk, jv, causal=causal, interpret=True),
            "bfloat16")
@@ -233,3 +263,37 @@ def test_bench_flash_needs_a_card(capsys):
         pytest.skip("a CUDA device is present; the script would time it")
     assert bench_flash.main([str(kfa.SOURCE)]) == 2
     assert capsys.readouterr().out == ""
+
+
+# --- head dims 160 and 256 -----------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", [160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B, Hq, Hkv, Sq, Skv, causal", [
+    (2, 4, 2, 128, 256, False), (1, 4, 2, 128, 256, True)])
+def test_flash_ref_matches_pallas_kernel_at_wide_heads(B, Hq, Hkv, Sq, Skv,
+                                                        causal, hd, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at
+    stablelm-12b's and gemma-7b's head dims, non-causal and causal with
+    Sq < Skv (the sweep above takes them causal at Sq == Skv)."""
+    (jq, q), (jk, k), (jv, v) = _qkv(B, Hq, Hkv, Sq, Skv, hd, dtype, seed=11)
+    got = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, pallas_flash(jq, jk, jv, causal=causal, interpret=True),
+           dtype)
+
+
+@pytest.mark.parametrize("hd", kfa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_input_checks_accept_every_head_dim(hd, dtype):
+    """64, 128, 160 and 256 pass in the model's (B, S, H, hd) layout;
+    96 still raises (``test_kernel_input_checks``)."""
+    x = torch.zeros((1, 100, 32, hd), dtype=dtype).transpose(1, 2)
+    kv = torch.zeros((1, 100, 8, hd), dtype=dtype).transpose(1, 2)
+    assert kfa.check_inputs(x, kv, kv) == kfa.Geometry(
+        B=1, Hq=32, Hkv=8, Sq=100, Skv=100, hd=hd)
+    x96, kv96 = (torch.zeros((1, 100, H, 96), dtype=dtype).transpose(1, 2)
+                 for H in (32, 8))
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.check_inputs(x96, kv96, kv96)

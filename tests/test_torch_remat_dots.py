@@ -98,9 +98,11 @@ def _value_and_grad(pcfg, model, batch):
 
 
 def _reference_plan(jcfg, monkeypatch):
-    """The reference's remat per layer: each ``scan_blocks`` call covers
-    its stack's length (times the period for a hybrid's super-blocks) of
-    layers; what no call covers (the head) runs without remat."""
+    """The reference's remat per unit of its scan: each ``scan_blocks``
+    call covers its stack's length of units, a layer each or, for a
+    hybrid, a super-block of ``hybrid_period`` layers under one
+    ``jax.checkpoint``; what no call covers (the head) runs without
+    remat."""
     calls = []
 
     def rec(orig):
@@ -114,8 +116,7 @@ def _reference_plan(jcfg, monkeypatch):
                 assert kw["remat_policy"] is \
                     jax.checkpoint_policies.dots_with_no_batch_dims_saveable
                 kind = "dots"
-            per = jcfg.hybrid_period if jcfg.family == "hybrid" else 1
-            calls.append([kind] * (n * per))
+            calls.append([kind] * n)
             return orig(body, carry, xs, **kw)
         return scan_blocks
 
@@ -126,6 +127,7 @@ def _reference_plan(jcfg, monkeypatch):
                    JM.init_params(jcfg, jax.random.PRNGKey(0)))
     covered = [k for c in calls for k in c]
     n = jcfg.enc_layers + jcfg.dec_layers if jcfg.family == "encdec" \
+        else jcfg.n_layers // jcfg.hybrid_period if jcfg.family == "hybrid" \
         else jcfg.n_layers
     return [None] * (n - len(covered)) + covered
 
@@ -133,7 +135,7 @@ def _reference_plan(jcfg, monkeypatch):
 @pytest.mark.parametrize("arch", ALL)
 @pytest.mark.parametrize("dots", [False, True])
 def test_remat_plan_matches_reference(arch, dots, monkeypatch):
-    """Head layers without remat, a hybrid's layers and a flat body
+    """Head layers without remat, a hybrid's super-blocks and a flat body
     without the flag under plain remat, a flat body with it under the
     dots policy; an encoder-decoder under plain remat throughout (the
     port's ``seq2seq`` reads no ``opt_remat_dots``)."""
@@ -280,10 +282,58 @@ def test_head_blocks_run_outside_checkpoint(dots, monkeypatch):
     monkeypatch.setattr(plm, "checkpoint", rec)
     batch = _batch(pcfg)
     l1, g1 = _value_and_grad(pcfg, model, batch)
-    assert [id(b) for b in wrapped] == \
-        [id(b) for b in model.blocks[pcfg.first_k_dense:]]
+    assert [[id(b) for b in unit.args[0]] for unit in wrapped] == \
+        [[id(b)] for b in model.blocks[pcfg.first_k_dense:]]
     off = dataclasses.replace(pcfg, remat=False)
     l0, g0 = _value_and_grad(off, _model(off, arch), batch)
     assert torch.equal(l0, l1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+
+
+def test_hybrid_remats_one_input_a_super_block():
+    """A hybrid runs each super-block of ``hybrid_period`` layers under
+    one ``checkpoint``, as the reference scans them under one
+    ``jax.checkpoint``: outside the checkpoints the layers keep one
+    input a super-block (the checkpoint's saved inputs: x, the positions
+    and the aux carry), not one a layer. jamba's smoke widths cut to two
+    super-blocks (16 layers); the loss and every gradient equal those of
+    the same weights with ``remat=False`` bit for bit."""
+    arch = "jamba-v0.1-52b"
+    base = preg.get_config(arch).smoke_model()
+    P = base.hybrid_period
+    pcfg = dataclasses.replace(base, n_layers=2 * P)
+    assert plm.remat_plan(pcfg) == ["plain", "plain"]
+    model = PM.init_params(pcfg, seed=0, device="cpu").requires_grad_(True)
+    B, S = 2, 32
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, S, pcfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    x.requires_grad_(True)
+    positions = torch.arange(S)
+    packed = []
+
+    def pack(t):
+        packed.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, aux = plm.run_blocks(model, x, positions)
+    inputs = [t for t in packed if t.shape == x.shape]
+    assert len(inputs) == 2 and inputs[0] is x
+    with torch.no_grad():
+        mid, _ = plm.run_layers(model.blocks[:P], x, positions,
+                                torch.zeros(()))
+    assert torch.equal(inputs[1], mid)
+    rest = [t for t in packed if t.shape != x.shape]
+    assert len(rest) == 4
+    assert all(t.dim() == 0 or torch.equal(t, positions) for t in rest)
+
+    off = dataclasses.replace(pcfg, remat=False)
+    batch = _batch(pcfg)
+    l1, g1 = _value_and_grad(pcfg, model, batch)
+    l0, g0 = _value_and_grad(off, PM.init_params(off, seed=0, device="cpu")
+                             .requires_grad_(True), batch)
+    assert torch.equal(l0, l1)
+    assert g0.keys() == g1.keys()
     for name in g0:
         assert torch.equal(g0[name], g1[name]), name

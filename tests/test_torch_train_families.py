@@ -342,10 +342,10 @@ def test_loss_and_gradients_match(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
 def test_remat_gives_equal_gradients(arch):
-    """Per-layer ``torch.utils.checkpoint`` recomputes each layer (the MoE
-    routing with it) to the same bits: the loss and every gradient equal
-    with remat on and off. The reference remats a whole jamba
-    super-block, the port each layer; both recompute the same values."""
+    """``torch.utils.checkpoint`` recomputes each layer (the MoE routing
+    with it), and each jamba super-block whole as the reference does, to
+    the same bits: the loss and every gradient equal with remat on and
+    off."""
     _, _, pcfg, model = _pair(arch, remat=True)
     _, _, pcfg0, model0 = _pair(arch, remat=False)
     batch = _batch(pcfg)
@@ -525,7 +525,8 @@ def test_opt_state_from_jax(arch):
 def test_resume_is_bit_exact(arch, tmp_path):
     """4 steps straight equal 2 steps, a checkpoint, a new ``Trainer`` and
     2 more, bit for bit: parameters (the f32 router and Mamba leaves
-    too), moments, step and losses; the model remats per layer."""
+    too), moments, step and losses; the model remats per layer (jamba
+    per super-block)."""
     cfg = preg.get_config(arch).smoke_model()
     assert cfg.remat
 
