@@ -123,6 +123,9 @@ TRAIN_LONG_S = 4096
 # the CPU tests' tolerances for 3 steps of the port against the reference
 # (tests/test_torch_train.py: losses rtol 1e-2, PARAM_REL over all leaves)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_REL = 1e-2, 0.0077
+# the smoke config's CPU-against-CUDA cases: the launcher's microbatches 1
+# and 4 (opt_microbatch4), each held to the bounds above
+TRAIN_MICROBATCHES = (1, 4)
 # the other families' training (ROADMAP item 10b) at their published
 # widths with the launcher's defaults, each on its own: mamba2-2.7b and
 # seamless-m4t-medium whole; deepseek-moe-16b cut to 6 of its 28 layers
@@ -130,17 +133,47 @@ TRAIN_LOSS_RTOL, TRAIN_PARAM_REL = 1e-2, 0.0077
 # training state; all 28 would need ~230 GB); jamba cut to one
 # super-block (8 of 32 layers, ~13.3e9 parameters), which runs one
 # forward and backward without the optimizer (AdamW's f32 moments would
-# bring it to ~160 GB; bf16 parameters and gradients are ~53 GB)
+# bring it to ~160 GB; bf16 parameters and gradients are ~53 GB). Then
+# the five archs that only served until then, each cut to ~4.1e9
+# parameters (~14 bytes a parameter at peak with f32 moments, as
+# qwen2.5-3b's 3.09e9 peaked at 43.5 GB): internvl2-2b whole (1.89e9);
+# gemma-7b 12 of 28 layers (4.11e9: its tied 256k-row embedding is 0.79e9
+# of them), stablelm-12b 11 of 40 (4.08e9), qwen1.5-32b 5 of 64 (4.19e9),
+# phi3.5-moe 3 of 32 (4.16e9: 16 experts a layer)
 TRAIN_FAMILY_ARCHS = ("mamba2-2.7b", "seamless-m4t-medium",
-                      "deepseek-moe-16b", "jamba-v0.1-52b")
-TRAIN_FAMILY_LAYERS = {"deepseek-moe-16b": 6, "jamba-v0.1-52b": 8}
+                      "deepseek-moe-16b", "jamba-v0.1-52b", "internvl2-2b",
+                      "gemma-7b", "stablelm-12b", "qwen1.5-32b",
+                      "phi3.5-moe-42b-a6.6b")
+TRAIN_FAMILY_LAYERS = {"deepseek-moe-16b": 6, "jamba-v0.1-52b": 8,
+                       "gemma-7b": 12, "stablelm-12b": 11, "qwen1.5-32b": 5,
+                       "phi3.5-moe-42b-a6.6b": 3}
 TRAIN_GRAD_ONLY = ("jamba-v0.1-52b",)
+# the run length of the archs whose loss does not fall within TRAIN_STEPS:
+# at lr 3e-4 Adam's first steps, near full size on every weight, throw
+# these wide models' losses up (13.1 -> 15.6 by gemma-7b's third step; the
+# CPU alike, one full-width layer) and 8 steps of the launcher's schedule
+# end above the first loss; 16 end 2.7-3.9 below it, 24 4.3-5.5
+# (train/bench_recipe.py)
+TRAIN_FAMILY_STEPS = {"internvl2-2b": 16, "gemma-7b": 16, "stablelm-12b": 16,
+                      "qwen1.5-32b": 16}
+# the sequence length of an arch that cannot train at TRAIN_SEQ:
+# internvl2-2b adds its 256 patch embeddings to the first 256 positions,
+# which a shorter batch does not have (caveat R10, ROADMAP §3)
+TRAIN_FAMILY_SEQ = {"internvl2-2b": 512}
+# the archs whose smoke config resumes on the card: internvl2-2b's patches
+# are the one input a resumed run redraws that the others do not cover
+TRAIN_FAMILY_RESUME = ("mamba2-2.7b", "seamless-m4t-medium",
+                       "deepseek-moe-16b", "jamba-v0.1-52b", "internvl2-2b")
 # the CPU tests' bounds on the parameters after 3 steps of each arch
-# against the reference (PARAM_REL of tests/test_torch_train_families.py
-# and tests/test_torch_train_seq2seq.py); losses within TRAIN_LOSS_RTOL
+# against the reference (PARAM_REL of tests/test_torch_train_families.py,
+# tests/test_torch_train_seq2seq.py and tests/test_torch_train_archs.py);
+# losses within TRAIN_LOSS_RTOL
 TRAIN_FAMILY_PARAM_REL = {"deepseek-moe-16b": 0.0046, "mamba2-2.7b": 0.0071,
                           "jamba-v0.1-52b": 0.0087,
-                          "seamless-m4t-medium": 0.0067}
+                          "seamless-m4t-medium": 0.0067,
+                          "internvl2-2b": 0.0050, "gemma-7b": 0.0049,
+                          "stablelm-12b": 0.0049, "qwen1.5-32b": 0.0048,
+                          "phi3.5-moe-42b-a6.6b": 0.0045}
 # a router probability gap under which two lowerings may order two experts
 # differently (tests/torch_parity.py NEAR_TIE)
 NEAR_TIE = 1e-2
@@ -1365,42 +1398,47 @@ def phase_remat_dots(fa, cfg, plain_params, plain_full, plain_long,
 def phase_train_cpu_vs_gpu(get_config, dev="cuda"):
     """The smoke config's weights (seed 0, made on the CPU) trained 3
     steps on the CPU and on CUDA with ``make_step`` on identical batches
-    (B 4, S 32, lr 1e-3, warmup 1): losses within TRAIN_LOSS_RTOL and the
-    parameters within TRAIN_PARAM_REL over all leaves, the CPU tests'
-    tolerances for the port against the reference at this config."""
+    (B 4, S 32, lr 1e-3, warmup 1), once at each of TRAIN_MICROBATCHES:
+    losses within TRAIN_LOSS_RTOL and the parameters within
+    TRAIN_PARAM_REL over all leaves, the CPU tests' tolerances for the
+    port against the reference at this config."""
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.models import model as PM
     from repro_torch.optim import adamw
     from repro_torch.train.loop import TrainConfig, make_step
     cfg = get_config(TRAIN_ARCH).smoke_model()
-    cpu = PM.init_params(cfg, seed=0, device="cpu")
-    gpu = copy.deepcopy(cpu).to(dev)
+    init = PM.init_params(cfg, seed=0, device="cpu")
     data = SyntheticLM(DataConfig(cfg.vocab, 32, 4))
     oc = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    losses = {}
-    for model, d in ((cpu, "cpu"), (gpu, dev)):
-        model.requires_grad_(True)
-        step = make_step(cfg, oc, TrainConfig())
-        state = adamw.init(dict(model.named_parameters()))
-        losses[d] = [float(step(model, state, data.torch_batch(s, d))["loss"])
-                     for s in range(3)]
-    num = den = 0.0
-    for (name, c), (_, gp) in zip(cpu.named_parameters(),
-                                  gpu.named_parameters()):
-        c, gp = c.detach().float(), gp.detach().float().cpu()
-        num += float(((gp - c) ** 2).sum())
-        den += float((c ** 2).sum())
-    param_rel = math.sqrt(num / den)
-    loss_rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
-                                                   losses[dev])]
-    emit(phase="train_cpu_vs_gpu", arch=cfg.name, cut="smoke_model",
-         steps=3, losses_cpu=losses["cpu"], losses_cuda=losses[dev],
-         loss_rel_err=loss_rel, param_rel_err=param_rel,
-         loss_rtol=TRAIN_LOSS_RTOL, param_rel_bound=TRAIN_PARAM_REL)
-    check(max(loss_rel) <= TRAIN_LOSS_RTOL,
-          f"CPU and CUDA losses differ: {losses}")
-    check(param_rel <= TRAIN_PARAM_REL,
-          f"CPU and CUDA parameters differ by {param_rel} after 3 steps")
+    for mb in TRAIN_MICROBATCHES:
+        cpu = copy.deepcopy(init)
+        gpu = copy.deepcopy(init).to(dev)
+        losses = {}
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            model.requires_grad_(True)
+            step = make_step(cfg, oc, TrainConfig(microbatches=mb))
+            state = adamw.init(dict(model.named_parameters()))
+            losses[d] = [float(step(model, state, data.torch_batch(s, d))
+                               ["loss"]) for s in range(3)]
+        num = den = 0.0
+        for (name, c), (_, gp) in zip(cpu.named_parameters(),
+                                      gpu.named_parameters()):
+            c, gp = c.detach().float(), gp.detach().float().cpu()
+            num += float(((gp - c) ** 2).sum())
+            den += float((c ** 2).sum())
+        param_rel = math.sqrt(num / den)
+        loss_rel = [abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                       losses[dev])]
+        emit(phase="train_cpu_vs_gpu", arch=cfg.name, cut="smoke_model",
+             microbatches=mb, steps=3, losses_cpu=losses["cpu"],
+             losses_cuda=losses[dev], loss_rel_err=loss_rel,
+             param_rel_err=param_rel, loss_rtol=TRAIN_LOSS_RTOL,
+             param_rel_bound=TRAIN_PARAM_REL)
+        check(max(loss_rel) <= TRAIN_LOSS_RTOL,
+              f"CPU and CUDA losses differ at {mb} microbatches: {losses}")
+        check(param_rel <= TRAIN_PARAM_REL,
+              f"CPU and CUDA parameters differ by {param_rel} after 3 steps "
+              f"at {mb} microbatches")
 
 
 def phase_train_resume(get_config, dev="cuda", arch=TRAIN_ARCH,
@@ -1445,8 +1483,10 @@ def phase_train_resume(get_config, dev="cuda", arch=TRAIN_ARCH,
 def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
     """Another family's training at full width (TRAIN_FAMILY_LAYERS'
     cuts): ``Trainer.run`` with the launcher's defaults for TRAIN_STEPS
-    steps from seed 0, weights made on the card, its checkpoint saves
-    turned off (resume is held at smoke width); then one more step under
+    steps (TRAIN_FAMILY_STEPS where the arch names another count) from
+    seed 0 at S TRAIN_SEQ (or TRAIN_FAMILY_SEQ's), weights made on the
+    card, its checkpoint saves turned off (resume is held at smoke
+    width); then one more step under
     the profiler. An arch of TRAIN_GRAD_ONLY instead takes one forward
     and backward of ``model.loss_fn`` through ``torch.autograd.grad``,
     timed, then one under the profiler, and no optimizer. Returns the
@@ -1459,6 +1499,9 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
     resident_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     grad_only = cfg.name in TRAIN_GRAD_ONLY
+    seq = TRAIN_FAMILY_SEQ.get(cfg.name, TRAIN_SEQ)
+    steps = TRAIN_FAMILY_STEPS.get(cfg.name, TRAIN_STEPS)
+    warmup = max(steps // 10, 5)
     fa.launches = 0                                  # this arch's training
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as d:
@@ -1466,9 +1509,8 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
             model = PM.init_params(cfg, seed=0, device=dev)
             model.requires_grad_(True)
         else:
-            tr = train_config(cfg, TRAIN_STEPS, d, TRAIN_LR,
-                              max(TRAIN_STEPS // 10, 5), TRAIN_STEPS,
-                              TRAIN_BATCH, TRAIN_SEQ, dev, log_every=1)
+            tr = train_config(cfg, steps, d, TRAIN_LR, warmup, steps,
+                              TRAIN_BATCH, seq, dev, log_every=1)
             model = tr.model
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
@@ -1476,7 +1518,7 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
         n_params = sum(p.numel() for p in model.parameters())
         if grad_only:
             params = list(model.parameters())
-            batch = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ,
+            batch = SyntheticLM(DataConfig(cfg.vocab, seq,
                                            TRAIN_BATCH)).torch_batch(0, dev)
 
             def step():
@@ -1503,21 +1545,21 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
             out = tr.run()
             losses, step_times = out["losses"], out["step_times"]
             finite = all(math.isfinite(x) for x in losses + norms)
-            extra = extra_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+            extra = extra_inputs(cfg, TRAIN_BATCH, seq, dev)
             batch = tr.data.torch_batch(
-                TRAIN_STEPS, dev, extra(TRAIN_STEPS) if extra else None)
+                steps, dev, extra(steps) if extra else None)
             prof = busy_share(lambda: step_fn(tr.model, tr.opt_state, batch))
     launches = fa.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = statistics.median(step_times[1:]) if len(step_times) > 1 \
         else prof["wall_s"]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    fpt = train_flops_per_token(cfg, n_params, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * seq
+    fpt = train_flops_per_token(cfg, n_params, seq)
     emit(phase="train_family_full", arch=cfg.name, family=cfg.family,
          n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
          dec_layers=cfg.dec_layers, d_model=cfg.d_model, n_params=n_params,
-         optimizer=not grad_only, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-         steps=len(losses), lr=TRAIN_LR, warmup=max(TRAIN_STEPS // 10, 5),
+         optimizer=not grad_only, batch=TRAIN_BATCH, seq=seq,
+         steps=len(losses), lr=TRAIN_LR, warmup=warmup,
          remat=cfg.remat, losses=losses, grad_norms=norms,
          step_times_s=step_times, median_step_s_after_first=step_s,
          tokens_per_s=tokens / step_s, flops_per_token=fpt,
@@ -1535,8 +1577,8 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
     check(finite, f"{cfg.name}: non-finite loss, grad norm or gradient: "
           f"{losses} {norms}")
     if not grad_only:
-        check(len(losses) == TRAIN_STEPS,
-              f"{cfg.name}: trained {len(losses)} of {TRAIN_STEPS} steps")
+        check(len(losses) == steps,
+              f"{cfg.name}: trained {len(losses)} of {steps} steps")
         check(losses[-1] < losses[0],
               f"{cfg.name}: the loss did not fall: {losses}")
     check(launches == 0, f"{cfg.name}: training launched the flash kernel "
@@ -2971,7 +3013,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t.append(time.perf_counter())
     phase_train_family_cpu_vs_gpu(get_config, L)
-    for arch in TRAIN_FAMILY_ARCHS:
+    for arch in TRAIN_FAMILY_RESUME:
         phase_train_resume(get_config, arch=arch,
                            phase="train_family_resume")
     phase_ssd_grad_128(L)
