@@ -32,7 +32,12 @@ steps each at their published widths, and one forward and backward of
 jamba cut to 8 of its 32 layers; those four archs' smoke models on CUDA
 against the CPU and resumed; the SSD's gradient at chunk 128; the flash
 kernel must not launch; qwen2.5-3b's steps again with ``opt_remat_dots``,
-equal to plain remat bit for bit) and the four torch examples
+equal to plain remat bit for bit; the training dry run: two production
+cells, qwen2.5-3b and deepseek-moe-16b at train_4k on a fake group of
+256 ranks, through ``launch/dryrun.py`` in processes of their own, and
+qwen2.5-3b whole through the sharded step ``parallel/spmd`` on one NCCL
+rank, bit for bit with the plain step, its collectives and peak held
+to the dry run's fake run of the same step) and the four torch examples
 (``examples/torch_*.py`` at their counterparts' settings, quickstart's
 pod cut to 4^3, the routes and
 the fault walkthrough's simulations held to the CPU) -- checks that the
@@ -54,6 +59,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -105,7 +111,9 @@ FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
                 "internvl2-2b", "qwen1.5-32b", "phi3.5-moe-42b-a6.6b")
 FAMILY_LAYERS = {"jamba-v0.1-52b": 16, "qwen1.5-32b": 56,
                  "phi3.5-moe-42b-a6.6b": 24}
-FAMILY_REQUESTS, FAMILY_MAX_NEW = 6, 16
+# new tokens a request, cut from 16 for the time limit (PR 28: the dry
+# run's phase; 32 decode steps a run at 16, ~16 at 8)
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 6, 8
 # the port functions whose device time the family profiles split out
 FAMILY_TAGS = {"moe": ("moe_route", "moe_dispatch", "moe_experts",
                        "moe_combine"),
@@ -184,6 +192,13 @@ NEAR_TIE = 1e-2
 # the one process holds, beside this run's figures for the same cut
 # through moe_ffn (phase train_family_full)
 PARALLEL_STEPS, PARALLEL_SHARDS = 3, 2
+# the dry run (launch/dryrun.py, a fake group of 256 ranks, subprocesses):
+# its production cells, and the sharded step of qwen2.5-3b (its fake peak
+# within DRYRUN_PEAK_REL of the card's) and of deepseek-moe-16b's cut at
+# (1, 1) on one NCCL rank for PARALLEL_STEPS steps
+DRYRUN_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
+DRYRUN_PEAK_REL = 0.15
+DRYRUN_TIMEOUT_S = 600
 # one MoE layer's output, CUDA against the CPU (tests/test_torch_moe.py's
 # BF16_LAYER: of the row's largest |y|)
 MOE_LAYER_ROW_REL = 2e-2
@@ -204,19 +219,22 @@ EXAMPLE_E2E_STEPS = 60
 # at 4x4x8 on the card's machine)
 EXAMPLE_QUICKSTART_SPEC = (4, 4, 4)
 # cycles of each simulator mode's sweep at 4x4x8, cut from 1200 for the
-# time limit (the CUDA, CPU and dense runs of six modes: ~105 s at 1200)
-SIM_MODES_CYCLES = 600
+# time limit (the CUDA, CPU and dense runs of six modes: ~105 s at 1200;
+# 600 until PR 28); 500 keep both of the phased mode's phases (300 + 200)
+SIM_MODES_CYCLES = 500
 # the PT 8^3 fault sweep's cycles, warm-up and fault cycle, cut from 6000,
-# 2000 and 3000 for the time limit (its two sweeps: 45-59 s at 6000)
-FAULT_SWEEP_CYCLES, FAULT_SWEEP_WARMUP, FAULT_SWEEP_T_FAULT = 3000, 1000, 1500
+# 2000 and 3000 for the time limit (its two sweeps: 45-59 s at 6000, 24.4
+# s at 3000 until PR 28)
+FAULT_SWEEP_CYCLES, FAULT_SWEEP_WARMUP, FAULT_SWEEP_T_FAULT = 1500, 500, 750
 # the chaos campaign's arrivals at PDTT 8^3, cut from the reference's 20
 # for the time limit (its campaign: 83-104 s at 20); seed 7's 10 still
 # bring a storm, a degraded disconnection, restores and a full heal (22
 # events)
 CHAOS_ARRIVALS = 10
 # the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 (PR 25:
-# 10) for the time limit (two campaigns: ~52 s at 20, 26-41 s at 10)
-CHAOS_REPLAY_ARRIVALS = 5
+# 10, PR 26: 5) for the time limit (two campaigns: ~52 s at 20, 26-41 s at
+# 10, 22.3 s at 5 with the build)
+CHAOS_REPLAY_ARRIVALS = 3
 
 
 def check(cond, msg):
@@ -1583,7 +1601,8 @@ def phase_train_family_full(fa, PM, cfg, bf16_flops_per_s, dev="cuda"):
               f"{cfg.name}: the loss did not fall: {losses}")
     check(launches == 0, f"{cfg.name}: training launched the flash kernel "
           f"{launches} times")
-    return launches, {"median_step_s_after_first": step_s,
+    return launches, {"losses": losses,
+                      "median_step_s_after_first": step_s,
                       "tokens_per_s": tokens / step_s,
                       "kernels_per_step": prof["kernels"],
                       "busy_share": prof["busy_share"],
@@ -2592,6 +2611,193 @@ def phase_parallel(fa, PM, L, get_config, train_losses, bf16_flops_per_s,
     return launches
 
 
+def dryrun_process(outdir, *args, dev="cuda"):
+    """``python -m repro_torch.launch.dryrun`` with ``args`` writing into
+    ``outdir``, started in a process of its own (its fake group cannot
+    share this process with NCCL)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--device", dev, "--outdir", str(outdir), "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def spmd_world1(cfg, dev="cuda"):
+    """``cfg`` from seed 0 through ``spmd.build`` and ``spmd.make_step`` on
+    a (1, 1) mesh of the one NCCL rank that is up, at train_full's
+    settings (B 4, S 128, lr 3e-4, warmup 5, total 8) for PARALLEL_STEPS
+    steps: (losses, the collectives its recorder logged each step, the
+    step times, the card's peak over the first step above what was
+    allocated before, the bytes of the rank's state)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptConfig, init
+    from repro_torch.parallel import spmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_mesh(("data", "model"), (1, 1))
+    whole = M.init_params(cfg, 0, dev)
+    state = spmd.shard_state(whole, mesh, 0)
+    del whole
+    model = spmd.build(cfg, mesh, dev, state)
+    del state
+    opt_state = init(model.local_params())
+    step = spmd.make_step(OptConfig(
+        lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+        warmup_steps=max(TRAIN_STEPS // 10, 5)))
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, logs, times = [], [], []
+    for s in range(PARALLEL_STEPS):
+        batch = spmd.rank_rows(data.torch_batch(s, dev), model.place)
+        torch.cuda.synchronize()
+        if s == 0:
+            torch.cuda.reset_peak_memory_stats()
+        rec = spmd.Recorder()
+        t1 = time.perf_counter()
+        with rec:
+            losses.append(float(step(model, opt_state, batch)["loss"]))
+        times.append(time.perf_counter() - t1)
+        logs.append([list(r) for r in rec.log])
+        if s == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      list(model.local_params().values())
+                      + list(opt_state["m"].values())
+                      + list(opt_state["v"].values()))
+    del model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, logs, times, peak, state_bytes
+
+
+def phase_dryrun(fa, get_config, train_losses, moe_losses, dev="cuda"):
+    """The training dry run and the sharded step (``parallel.spmd``). Three
+    dry-run processes start together: (a) DRYRUN_ARCHS' production cells,
+    train_4k on ``single_pod_16x16`` under a fake group of 256 ranks, each
+    through the CLI, and the fake run of (b)'s first step at (1, 1). (b)
+    Meanwhile, on a (1, 1) mesh of one NCCL rank (:func:`spmd_world1`):
+    qwen2.5-3b at full width, whose losses must equal train_full's first
+    ones bit for bit, whose recorder's log of the first step must equal
+    the fake run's (both empty: a world of one rank issues no
+    collective), and whose fake ``peak_live_bytes`` must be within
+    DRYRUN_PEAK_REL of the card's peak over the first step; then
+    deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut, whose MoE runs
+    ``layers.moe_ffn_ep`` with all experts and no group, and whose losses
+    must equal ``moe_losses`` bit for bit (this run's train_family_full of
+    the same cut through ``moe_ffn``, at the same settings). The flash
+    kernel must not launch. Returns its launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    fa.launches = 0                                    # the dry-run path
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    procs = {arch: dryrun_process(out, "--arch", arch, "--shape", "train_4k",
+                                  "--mesh", "single", dev=dev)
+             for arch in DRYRUN_ARCHS}
+    procs["world1"] = dryrun_process(
+        out / "world1", "--arch", TRAIN_ARCH, "--mesh-shape", "1,1",
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log",
+        dev=dev)
+    init_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{init_dir}/init",
+                            rank=0, world_size=1)
+    moe_arch = "deepseek-moe-16b"
+    try:
+        losses, logs, times, peak, state_bytes = spmd_world1(
+            get_config(TRAIN_ARCH).model, dev)
+        t_moe = time.perf_counter()
+        moe_cfg = family_config(get_config, moe_arch, TRAIN_FAMILY_LAYERS)
+        m_losses, m_logs, m_times, m_peak, _ = spmd_world1(moe_cfg, dev)
+        t_moe = time.perf_counter() - t_moe
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(init_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    logs_out = {}
+    try:
+        for name, p in procs.items():
+            logs_out[name] = p.communicate(timeout=max(
+                DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wait_s = time.perf_counter() - t1
+    failed = {n: logs_out.get(n, "")[-3000:] for n, p in procs.items()
+              if p.returncode != 0}
+    check(not failed, f"dry-run processes failed: {failed}")
+    cells = {}
+    for arch in DRYRUN_ARCHS:
+        rec = json.loads((out / f"{arch}__train_4k__single_pod_16x16.json")
+                         .read_text())
+        cells[arch] = rec
+        emit(phase="dryrun_cell", arch=arch, shape="train_4k",
+             mesh=rec["mesh"], chips=rec["chips"],
+             collectives={k: {"count": v["count"],
+                              "wire_bytes": v["wire_bytes"],
+                              "operand_bytes": v["operand_bytes"]}
+                          for k, v in rec["collectives"].items()},
+             wire_bytes_per_dev=rec["wire_bytes_per_dev"],
+             flops_per_dev=rec["flops_per_dev"],
+             bytes_per_dev=rec["bytes_per_dev"], memory=rec["memory"],
+             fits_h100_80g=rec["memory"]["fits_h100_80g"],
+             terms=rec["terms"], rates=rec["rates"],
+             useful_flop_ratio=rec["useful_flop_ratio"],
+             trace_s=rec["trace_s"], device=rec["device"])
+        check(rec["collectives"] and rec["flops_per_dev"] > 0
+              and rec["memory"]["peak_live_bytes"]
+              > rec["memory"]["argument_bytes"],
+              f"{arch}: an empty dry-run record")
+    (fake,) = [json.loads(f.read_text())
+               for f in (out / "world1").glob("*.json")]
+    shutil.rmtree(out, ignore_errors=True)
+    fake_peak = fake["memory"]["peak_live_bytes"]
+    want = train_losses[:PARALLEL_STEPS]
+    moe_want = list(moe_losses or [])[:PARALLEL_STEPS]
+    launches = fa.launches
+    emit(phase="dryrun_world1", arch=TRAIN_ARCH, backend="nccl", mesh=[1, 1],
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=PARALLEL_STEPS,
+         losses=losses, train_full_losses=want, losses_equal=losses == want,
+         step_times_s=times, collectives_real=logs[0],
+         collectives_fake=fake["collective_log"],
+         collectives_equal=logs[0] == fake["collective_log"],
+         peak_bytes=peak, fake_peak_live_bytes=fake_peak,
+         peak_rel=abs(fake_peak - peak) / peak,
+         state_bytes=state_bytes,
+         fake_state_bytes=fake["memory"]["alias_bytes"] - 4,
+         fake_trace_s=fake["trace_s"],
+         flash_launches=launches)
+    emit(phase="dryrun_world1_moe", arch=moe_arch, backend="nccl",
+         mesh=[1, 1], n_layers=moe_cfg.n_layers, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=PARALLEL_STEPS, losses=m_losses,
+         moe_ffn_losses=moe_want, losses_equal=m_losses == moe_want,
+         step_times_s=m_times, collectives=m_logs[0], peak_bytes=m_peak,
+         seconds=t_moe)
+    emit(phase="dryrun_seconds", seconds=time.perf_counter() - t0,
+         waited_for_processes_s=wait_s)
+    check(losses == want, f"the sharded step's losses {losses} are not "
+          f"train_full's {want}")
+    check(len(moe_want) == PARALLEL_STEPS and m_losses == moe_want,
+          f"{moe_arch}: the sharded step's losses {m_losses} are not "
+          f"moe_ffn's {moe_want}")
+    check(logs[0] == fake["collective_log"] == [] and m_logs[0] == [],
+          f"the real step's collectives {logs[0]} and {m_logs[0]} are not "
+          f"the fake run's {fake['collective_log']}, none at world 1")
+    check(abs(fake_peak - peak) <= DRYRUN_PEAK_REL * peak,
+          f"fake peak {fake_peak} is not within {DRYRUN_PEAK_REL} of the "
+          f"card's {peak}")
+    check(state_bytes == fake["memory"]["alias_bytes"] - 4,
+          f"the card's state {state_bytes} B is not the fake run's")
+    check(launches == 0, f"the dry-run path launched the flash kernel "
+          f"{launches} times")
+    return launches
+
+
 def jsonable(x):
     """``x`` with numpy scalars and arrays, tuples and non-string keys
     made plain for ``json.dumps``."""
@@ -3021,6 +3227,9 @@ def main() -> int:
     parallel_launches = phase_parallel(
         fa, PM, L, get_config, train_losses, bf16_flops_per_s,
         family_figures.get("deepseek-moe-16b"))
+    dryrun_launches = phase_dryrun(
+        fa, get_config, train_losses,
+        family_figures.get("deepseek-moe-16b", {}).get("losses"))
 
     # ---- the torch examples, each counted from zero ------------------------
     example_launches = phase_examples(fa, mp, PT, route_pod, PipelineConfig)
@@ -3066,6 +3275,7 @@ def main() -> int:
         "launches_training": train_launches,
         "launches_training_families": family_train_launches,
         "launches_parallel": parallel_launches,
+        "launches_dryrun": dryrun_launches,
         "launches_remat_dots": remat_dots_launches,
         "launches_examples": {k: v["flash_attention"] for k, v in
                               example_launches.items()},

@@ -17,7 +17,9 @@ reference's sharding constraints (``wsc``) are left out: the port's
 plain tensors. What a mesh changes here it changes through
 ``parallel.api``: ``moe_ffn_local`` dispatches per data shard, and where
 the batch is spread over several processes both MoE functions run
-their collectives (``parallel.api.processes``).
+their collectives (``parallel.api.processes``); ``moe_ffn_ep`` runs one
+rank's experts of the sharded step (``parallel.spmd``) with the model
+group's and the batch groups' collectives it is given.
 """
 from __future__ import annotations
 
@@ -335,10 +337,13 @@ def moe_capacity(cfg, T: int) -> int:
     return max(8, int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
 
 
-def moe_route(p: MoE, xf: torch.Tensor, cfg, C: int) -> Route:
-    """Router in float32 on xf (T, D), the top-k experts of each token,
-    then :func:`moe_assign`."""
-    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+def moe_route(p: MoE, xf: torch.Tensor, cfg, C: int, router=None
+              ) -> Route:
+    """Router in float32 on xf (T, D) (``router``, by default
+    ``p.router``), the top-k experts of each token, then
+    :func:`moe_assign`."""
+    probs = torch.softmax(xf.float() @ (p.router if router is None
+                                         else router), dim=-1)
     return moe_assign(probs, torch.topk(probs, cfg.top_k)[1], C)
 
 
@@ -513,6 +518,59 @@ def moe_ffn_local(p: MoE, x: torch.Tensor, cfg):
         prob_sum, counts = all_reduce(prob_sum), all_reduce(counts)
         T = T * api.processes()
     aux = E * torch.sum(prob_sum / T * (counts / (T * K)))
+    return y.reshape(B, S, D), aux
+
+
+def moe_ffn_ep(p: MoE, x: torch.Tensor, cfg, first_expert: int = 0,
+               model_group=None, batch_groups=(), router=None):
+    """Expert parallelism over the "model" axis (``parallel.spmd``). x (B,
+    S, D) is this rank's data shard, which every rank of ``model_group``
+    holds alike; ``p`` holds this rank's ``p.w1.shape[0]`` experts from
+    ``first_expert`` (and its columns of the shared experts). Every rank
+    routes the shard over all experts (the router is replicated) with
+    the shard's own capacity, ``moe_ffn_local``'s ``C = max(8, int(T * K
+    * cf / E))``; it dispatches only the entries routed to its own
+    experts (the others read as dropped, through ``_Dispatch``), runs
+    them, and sums their gated outputs by token in float32 in ascending
+    expert order. The ranks' partial sums are all-reduced over
+    ``model_group`` (the partial combine: every rank already holds the
+    tokens, so nothing needs an all-to-all), rounded to x's dtype, and
+    the shared experts' row-parallel output is added. The gates and the
+    dispatched rows enter through ``column_input``, so their gradients
+    sum the ranks' parts; the load-balancing ``aux`` sums the router's
+    probabilities and the counts over ``batch_groups`` (the ranks that
+    hold the other data shards). ``router`` is the whole router weight
+    when ``p`` holds a shard of it. With no groups and all experts this
+    is ``moe_ffn`` bit for bit."""
+    B, S, D = x.shape
+    E, K, T = cfg.n_experts, cfg.top_k, B * S
+    El = p.w1.shape[0]
+    cf = 1.0 if cfg.opt_moe_cf1 else cfg.capacity_factor
+    C = max(8, int(T * K * cf / E))
+    xf = x.reshape(T, D)
+    r = moe_route(p, xf, cfg, C, router)
+    xin = api.column_input(xf, model_group)
+    mine = r.keep & (r.se >= first_expert) & (r.se < first_expert + El)
+    slot = torch.where(mine, (r.se - first_expert) * C + r.pos, El * C)
+    out = moe_experts(p, _Dispatch.apply(xin, slot, r.st, r.spos, El, C),
+                      cfg.act)
+    sg = api.column_input(r.sg, model_group)
+    tok = F.pad(out.reshape(El * C, D), (0, 0, 0, 1))[slot] * \
+        sg[:, None].to(out.dtype)
+    y = api.row_output(_sum_by_token(tok.float(), r.spos, torch.float32),
+                       model_group).to(x.dtype)
+    if cfg.n_shared_experts:
+        s = p.shared
+        y = y + api.row_output(glu_mlp(xin, s.w1, s.w3, s.w2, cfg.act),
+                               model_group)
+    if not batch_groups:
+        aux = E * torch.sum(r.probs.mean(0) * (r.counts.float() / (T * K)))
+        return y.reshape(B, S, D), aux
+    sums = torch.stack([r.probs.sum(0), r.counts.float()])
+    for g in batch_groups:
+        sums = api.summed(sums, g)
+        T = T * torch.distributed.get_world_size(g)
+    aux = E * torch.sum(sums[0] / T * (sums[1] / (T * K)))
     return y.reshape(B, S, D), aux
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -63,15 +63,18 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: OptConfig, grads: Tree, state: Dict, params: Tree):
+def update(cfg: OptConfig, grads: Tree, state: Dict, params: Tree,
+           grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step. Writes the new parameters into ``params`` and the
     new moments into ``state`` **in place** (a full-width model has no
     room for a second copy), advances ``state["step"]``, and returns
-    ``(params, state, {"lr", "grad_norm"})``."""
+    ``(params, state, {"lr", "grad_norm"})``. ``grad_norm`` is the norm
+    to clip by when ``grads`` are one rank's shards of the gradients
+    (``parallel.spmd``); by default :func:`global_norm` of ``grads``."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = gnorm.new_tensor(cfg.clip_norm)       # a true division, as JAX
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 

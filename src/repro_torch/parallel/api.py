@@ -17,6 +17,10 @@ Under a default process group the batch is spread over its ranks
 (:func:`processes`): ``train.loop.make_step`` gives each rank its rows,
 and each rank holds an equal share of the mesh's batch axes ("pod",
 "data") in rank order; the model axis is not split over processes.
+The sharded step (``parallel.spmd``) does split it: its layers enter
+and leave work split over a process group through ``column_input``,
+``row_output`` and ``summed``, autograd functions around one
+all-reduce each.
 """
 from __future__ import annotations
 
@@ -179,3 +183,67 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     for them."""
     from torch.distributed.nn.functional import all_gather
     return torch.cat(all_gather(t.contiguous()), dim=0)
+
+
+# --- collectives at module boundaries (parallel.spmd) -----------------------
+
+
+def _reduced(t: torch.Tensor, group) -> torch.Tensor:
+    """A copy of ``t`` summed over ``group``."""
+    import torch.distributed as dist
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _ColumnInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+class _RowOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Summed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+def column_input(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` where it enters work split over ``group`` (a column-parallel
+    product): the identity forward; the backward sums the ranks' partial
+    gradients. ``x`` itself without a group."""
+    return x if group is None else _ColumnInput.apply(x, group)
+
+
+def row_output(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial results of a row-parallel product summed over
+    ``group``; every rank holds the sum, and the backward passes each
+    rank's gradient on as it is. ``x`` itself without a group."""
+    return x if group is None else _RowOutput.apply(x, group)
+
+
+def summed(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward, and its gradient summed over
+    it backward: for a value every rank then uses alike (the MoE's
+    load-balancing sums over the batch shards). ``x`` without a group."""
+    return x if group is None else _Summed.apply(x, group)

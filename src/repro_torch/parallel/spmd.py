@@ -1,0 +1,660 @@
+"""The sharded training step of the dense and MoE LM families: FSDP over
+"data" (HSDP over "pod") and tensor parallelism over "model".
+
+Counterpart of what ``jax.jit(train_step, in_shardings=...)`` makes of
+the reference's step in its dry run (``repro.launch.dryrun.build_lowered``):
+the step sharded as ``parallel.sharding``'s rules say. The models see
+only plain tensors; no DTensor does arithmetic here.
+
+State. A rank holds exactly its block of every parameter under its spec
+(``sharding.param_specs`` through ``filter_spec``), so its parameters,
+AdamW moments and batch rows are the bytes the reference's program
+holds on a device. The dimension a spec puts on "model" is cut to the
+rank's block when the module is built; the dimension it puts on "data"
+is sharded by FSDP2's ``fully_shard`` (``Shard(dim)``, one unit a layer
+and one for the root, HSDP with "pod"); a parameter whose spec names no
+"data" (norms, biases, ``vis_proj``) is FSDP's ignored parameter,
+replicated over the batch ranks, its gradient averaged over them here.
+
+Compute over "model" by local shapes, the Megatron pattern. Collectives
+sit at module boundaries (``parallel.api``: ``column_input``, identity
+forward and all-reduce backward, where a column-parallel product takes
+its input; ``row_output``, all-reduce forward, where a row-parallel one
+gives its output):
+- attention: each rank runs its block of q heads when the heads divide
+  over "model", and the kv heads those q heads read (GQA: qwen2.5-3b's 2
+  kv heads over 16 ranks give each rank one whole kv head, where its
+  stored block of ``wk`` is 16 columns). A weight whose stored block is
+  not what the rank computes with is gathered over "model" inside the
+  step and its gradient reduce-scattered back (:class:`_ModelView`); a
+  replicated bias is sliced and its gradient summed. Where the q heads
+  do not divide (qwen1.5-32b's 40 over 16), every rank runs all heads
+  on the gathered weights, and keeps its block of their (equal)
+  gradients;
+- the GLU MLP (and an MoE's shared experts): columns of ``w1``/``w3``
+  and rows of ``w2`` where ``d_ff`` divides;
+- the vocabulary where it divides: a vocab-parallel embedding (each rank
+  looks up its rows, zeros elsewhere, summed over "model", exact) and a
+  vocab-parallel cross entropy (max, sum of exponentials and the label's
+  logit all-reduced), else replicated;
+- the MoE: experts over "model" (``_MOE_RULES``), the router replicated,
+  through ``layers.moe_ffn_ep``. Every rank of a model group already
+  holds its data shard's tokens, so the dispatch needs no all-to-all:
+  each rank routes all tokens, runs its own experts, and the partial
+  combine is all-reduced (f32). The dispatch keeps ``_Dispatch``'s fixed
+  summation order. Capacity and routing are per data shard, as
+  ``moe_ffn_local``'s.
+
+Every collective of the step (FSDP2's own included) goes through the
+c10d dispatcher, where :class:`Recorder` logs it. At world size 1 on a
+(1, 1) mesh the step is ``train.loop.make_step``'s bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L, lm
+from repro_torch.optim import adamw
+from repro_torch.parallel import api
+from repro_torch.parallel.api import BATCH_AXES, Mesh, filter_spec
+from repro_torch.parallel.sharding import spec_for_leaf
+
+FAMILIES = ("dense", "moe")
+AUX_WEIGHT = 0.01
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return (entry if isinstance(entry, tuple) else (entry,)) if entry else ()
+
+
+def coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index on each axis of ``mesh`` (row-major, as
+    ``init_device_mesh`` lays ranks out)."""
+    out = {}
+    for name, size in reversed(list(zip(mesh.axis_names, mesh.shape))):
+        out[name] = rank % size
+        rank //= size
+    return out
+
+
+def cut(t: torch.Tensor, spec: tuple, mesh: Mesh, at: Dict[str, int],
+        only: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
+    """The block of ``t`` under ``spec`` at mesh position ``at`` (a view):
+    each dimension cut over the axes its entry names (``only`` those
+    in ``only``), the first axis the major one."""
+    for i, e in enumerate(spec):
+        n, idx = 1, 0
+        for a in _axes(e):
+            if only is None or a in only:
+                n, idx = n * mesh.axis_size(a), idx * mesh.axis_size(a) + at[a]
+        if n > 1:
+            size = t.shape[i] // n
+            t = t.narrow(i, idx * size, size)
+    return t
+
+
+def specs(model: nn.Module, mesh: Mesh) -> Dict[str, tuple]:
+    """Each parameter's filtered spec, by name; ``model`` holds the whole
+    model's shapes."""
+    return {n: filter_spec(spec_for_leaf(n, p.ndim), mesh, p.shape)
+            for n, p in model.named_parameters()}
+
+
+def shard_state(model: nn.Module, mesh: Mesh, rank: int
+                ) -> Dict[str, torch.Tensor]:
+    """The whole model's parameters (by name) cut into rank ``rank``'s
+    shards on ``mesh``: what the rank's sharded model holds."""
+    at = coords(mesh, rank)
+    return {n: cut(p.detach(), specs(model, mesh)[n], mesh, at).clone()
+            for n, p in model.named_parameters()}
+
+
+def gather_state(shards: List[Dict[str, torch.Tensor]], model: nn.Module,
+                 mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The whole parameters of ``model``'s shapes from every rank's
+    shards (``shards[rank]``), the inverse of :func:`shard_state`."""
+    spec = specs(model, mesh)
+    out = {n: torch.empty(p.shape, dtype=p.dtype)
+           for n, p in model.named_parameters()}
+    for rank, shard in enumerate(shards):
+        at = coords(mesh, rank)
+        for n, t in shard.items():
+            cut(out[n], spec[n], mesh, at).copy_(t)
+    return out
+
+
+# --- this rank's place and groups -------------------------------------------
+
+
+class Place:
+    """This rank's coordinates on a mesh that holds a DeviceMesh and the
+    process group of each axis longer than 1 (None otherwise)."""
+
+    def __init__(self, mesh: Mesh):
+        dm = mesh.device_mesh
+        if dm is None:
+            raise ValueError("the sharded step needs a mesh that holds a "
+                             "DeviceMesh (a process group of its size)")
+        self.mesh = mesh
+        self.at = {a: dm.get_local_rank(a) for a in mesh.axis_names}
+        self.group = {a: dm.get_group(a) if mesh.axis_size(a) > 1 else None
+                      for a in mesh.axis_names}
+        self.m = mesh.axis_size("model")
+        self.model = self.group.get("model")
+        self.batch = tuple(self.group[a] for a in BATCH_AXES
+                           if self.group.get(a) is not None)
+
+    @property
+    def batch_shard(self) -> int:
+        """The index of this rank's batch shard (pod major, then data)."""
+        idx = 0
+        for a in BATCH_AXES:
+            idx = idx * self.mesh.axis_size(a) + self.at.get(a, 0)
+        return idx
+
+    def fsdp_mesh(self):
+        """The DeviceMesh FSDP shards over: "data", or ("pod", "data")
+        for HSDP (replicated over pod)."""
+        dm = self.mesh.device_mesh
+        if "pod" in self.mesh.axis_names:
+            return dm["pod", "data"]
+        return dm["data"]
+
+
+def rank_rows(batch: Dict[str, torch.Tensor], place: Place
+              ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: batch shard ``place.batch_shard``
+    of ``mesh.batch_shards`` equal shards of rows."""
+    n = place.mesh.batch_shards
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split over "
+                             f"{n} batch shards")
+        b = v.shape[0] // n
+        out[k] = v[place.batch_shard * b:(place.batch_shard + 1) * b]
+    return out
+
+
+# --- weights gathered over "model" inside the step ---------------------------
+
+
+def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] * dist.get_world_size(group),)
+                      + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    import torch.distributed as dist
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
+                      + x.shape[1:])
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class View:
+    """What a rank computes with, ``need`` (a range of dimension ``dim``
+    of the whole tensor, ``size`` long), against what it stores,
+    ``stored`` (its block, or None for the whole dimension); ``partial``
+    when the ranks' gradients of the range are parts to be summed, not
+    equal copies."""
+    dim: int
+    size: int
+    stored: Optional[Tuple[int, int]]
+    need: Tuple[int, int]
+    partial: bool
+
+
+class _ModelView(torch.autograd.Function):
+    """The ``need`` range of a weight from the rank's stored block:
+    gathered over "model" when it is not all held here. The backward
+    puts the gradient back in the whole dimension and sums the ranks'
+    parts (a reduce-scatter into the block, or an all-reduce of a whole
+    replicated tensor), or, where every rank computed the same gradient,
+    keeps its own block of it."""
+
+    @staticmethod
+    def forward(ctx, t, v: View, group):
+        ctx.v, ctx.group, ctx.shape = v, group, t.shape
+        full = t if v.stored is None else _gather(t, v.dim, group)
+        return full.narrow(v.dim, v.need[0], v.need[1] - v.need[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        v = ctx.v
+        shape = list(ctx.shape)
+        shape[v.dim] = v.size
+        full = g.new_zeros(shape)
+        full.narrow(v.dim, v.need[0], v.need[1] - v.need[0]).copy_(g)
+        if v.partial:
+            if v.stored is None:
+                dist.all_reduce(full, group=ctx.group)
+                return full, None, None
+            return _scatter_sum(full, v.dim, ctx.group), None, None
+        if v.stored is None:
+            return full, None, None
+        return full.narrow(v.dim, v.stored[0],
+                           v.stored[1] - v.stored[0]).contiguous(), None, None
+
+
+class _DataGather(torch.autograd.Function):
+    """A weight sharded over "data" by hand (FSDP holds one dtype a unit,
+    and the MoE's float32 router shares its unit with bf16 experts):
+    all-gathered over "data" forward; the backward reduce-scatters its
+    gradient into the shard and averages it over "data" and then "pod",
+    as FSDP's reduce-scatter does (either group None: of size 1)."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, data, pod):
+        ctx.dim, ctx.data, ctx.pod = dim, data, pod
+        return t.view_as(t) if data is None else _gather(t, dim, data)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        if ctx.data is not None:
+            g = _scatter_sum(g, ctx.dim, ctx.data) / \
+                dist.get_world_size(ctx.data)
+        if ctx.pod is not None:
+            g = g.clone()
+            dist.all_reduce(g, group=ctx.pod)
+            g = g / dist.get_world_size(ctx.pod)
+        return g, None, None, None
+
+
+# --- the modules ------------------------------------------------------------
+
+
+class Attention(L.Attention):
+    """A rank's attention: ``hq`` q heads and ``hkv`` kv heads, each
+    weight through its :class:`View` (None: as stored); ``group`` the
+    model group when the heads are split over it, else None."""
+    views: Dict[str, Optional[View]] = {}
+    model_group = None
+    group = None
+    hq = hkv = 0
+
+    def _w(self, name: str) -> torch.Tensor:
+        v = self.views.get(name)
+        t = getattr(self, name)
+        return t if v is None else _ModelView.apply(t, v, self.model_group)
+
+    def blocked(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        """``L.Attention.blocked`` on this rank's heads: the same ops in
+        the same order, between ``column_input`` and ``row_output``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        x = api.column_input(x, self.group)
+        q, k, v = x @ self._w("wq"), x @ self._w("wk"), x @ self._w("wv")
+        if cfg.qkv_bias:
+            q, k, v = q + self._w("bq"), k + self._w("bk"), v + self._w("bv")
+        q = q.view(B, S, self.hq, cfg.head_dim)
+        k = k.view(B, S, self.hkv, cfg.head_dim)
+        v = v.view(B, S, self.hkv, cfg.head_dim)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        o = L.blocked_attention(q, k, v, causal=cfg.causal,
+                                block=cfg.attn_block)
+        return api.row_output(o.reshape(B, S, -1) @ self._w("wo"),
+                              self.group)
+
+
+class MLP(L.MLP):
+    """A rank's GLU MLP: its columns of ``w1``/``w3`` and rows of ``w2``
+    when ``group`` (the model group) splits them; whole without one."""
+    group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return api.row_output(L.glu_mlp(api.column_input(x, self.group),
+                                        self.w1, self.w3, self.w2, self.act),
+                              self.group)
+
+
+class Block(lm.Block):
+    """``lm.Block`` with this module's attention and MLP; its MoE runs
+    ``layers.moe_ffn_ep`` over this rank's experts."""
+    first_expert = 0
+    expert_group = None
+    batch_groups: Tuple = ()
+    router_gather: Optional[Tuple] = None
+
+    def __init__(self, cfg, mixer: str, ffn: Optional[str]):
+        if mixer != "attn":
+            raise ValueError(f"{cfg.name}: the sharded step runs attention "
+                             "layers only")
+        super().__init__(cfg, mixer, ffn, "meta")
+        self.attn = Attention(cfg, "meta")
+        if ffn == "mlp":
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
+
+    def _ffn(self, x: torch.Tensor, decode: bool = False):
+        if self.ffn != "moe":
+            return super()._ffn(x, decode)
+        h = L.apply_norm(self.cfg.norm, x, self.ln2)
+        router = None if self.router_gather is None else \
+            _DataGather.apply(self.moe.router, *self.router_gather)
+        f, aux = L.moe_ffn_ep(self.moe, h, self.cfg, self.first_expert,
+                              self.expert_group, self.batch_groups, router)
+        return x + f, aux
+
+
+def _vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         lo: int, group) -> torch.Tensor:
+    """``lm.cross_entropy`` of logits split over ``group`` by vocabulary
+    (this rank's from ``lo``): the row max all-reduced (MAX), then the
+    sum of exponentials and the label's logit (zero on the ranks that do
+    not hold it) summed in one all-reduce."""
+    import torch.distributed as dist
+    logits = logits.float()
+    mx = logits.detach().amax(-1)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    inside = (labels >= lo) & (labels < lo + logits.shape[-1])
+    ll = torch.gather(logits, -1, torch.where(inside, labels - lo, 0)
+                      .long()[..., None])[..., 0]
+    se, ll = api.row_output(torch.stack([
+        torch.exp(logits - mx[..., None]).sum(-1),
+        torch.where(inside, ll, 0.0)]), group)
+    return (torch.log(se) + mx - ll).mean()
+
+
+class ShardedLM(lm.DecoderLM):
+    """One rank's share of a dense or MoE decoder-only LM on a mesh that
+    holds a DeviceMesh (module docstring), built by :func:`build`. Its
+    parameters have ``lm.DecoderLM``'s names and order; ``forward`` is
+    the training loss of this rank's rows."""
+
+    def __init__(self, cfg, mesh: Mesh, device):
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name} ({cfg.family}) is not in the "
+                             "sharded step yet")
+        super().__init__(cfg, "meta")
+        self.blocks = nn.ModuleList(Block(cfg, mx, f) for mx, f in self.kinds)
+        self.place = place = Place(mesh)
+        self.spec = specs(self, mesh)
+        self._plan(place)
+        names, hand = self._names, set(self.by_hand())
+        for mod in self.modules():
+            for leaf, p in list(mod.named_parameters(recurse=False)):
+                n = names[id(p)]
+                shape = cut(p, self.spec[n], mesh, place.at, only=(
+                    "model", "data") if n in hand else ("model",)).shape
+                setattr(mod, leaf, L.new_param(*shape, dtype=p.dtype,
+                                               device=device))
+
+    @property
+    def _names(self) -> Dict[int, str]:
+        return {id(p): n for n, p in self.named_parameters()}
+
+    def _model_block(self, name: str, dim: int):
+        """This rank's stored block of dimension ``dim`` of ``name``
+        (None: stored whole), from its spec."""
+        spec = self.spec[name]
+        if dim >= len(spec) or "model" not in _axes(spec[dim]):
+            return None
+        n = self.get_parameter(name).shape[dim] // self.place.m
+        r = self.place.at["model"]
+        return r * n, (r + 1) * n
+
+    def _plan(self, place: Place) -> None:
+        cfg, m, r = self.cfg, place.m, place.at["model"]
+        V = cfg.vocab
+        self.vocab_group = place.model if m > 1 and V % m == 0 else None
+        self.vocab_lo = r * V // m if self.vocab_group is not None else 0
+        for i, blk in enumerate(self.blocks):
+            pre = f"blocks.{i}."
+            self._plan_attention(blk.attn, pre + "attn.", place)
+            if blk.ffn == "mlp":
+                blk.mlp.group = place.model \
+                    if self._model_block(pre + "mlp.w1", 1) else None
+            elif blk.ffn == "moe":
+                E, Fs = cfg.n_experts, cfg.moe_d_ff * cfg.n_shared_experts
+                if m > 1 and (E % m or Fs % m):
+                    raise ValueError(f"{cfg.name}: {E} experts and shared "
+                                     f"width {Fs} must divide over {m}")
+                blk.first_expert = r * E // m
+                blk.expert_group = place.model
+                blk.batch_groups = place.batch
+                if pre + "moe.router" in self.by_hand() and place.batch:
+                    blk.router_gather = (0, place.group.get("data"),
+                                         place.group.get("pod"))
+
+    def _plan_attention(self, attn: Attention, pre: str, place: Place):
+        cfg, m, r = self.cfg, place.m, place.at["model"]
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        split = m > 1 and Hq % m == 0
+        if split:
+            q = (r * Hq // m, (r + 1) * Hq // m)
+            rep = Hq // Hkv
+            kv = (q[0] // rep, (q[1] - 1) // rep + 1)
+        else:
+            q, kv = (0, Hq), (0, Hkv)
+        attn.hq, attn.hkv = q[1] - q[0], kv[1] - kv[0]
+        attn.group = place.model if split else None
+        attn.model_group = place.model
+        need = {"wq": (1, q, Hq), "wk": (1, kv, Hkv), "wv": (1, kv, Hkv),
+                "wo": (0, q, Hq)}
+        if cfg.qkv_bias:
+            need.update(bq=(0, q, Hq), bk=(0, kv, Hkv), bv=(0, kv, Hkv))
+        views = {}
+        for name, (dim, (lo, hi), H) in need.items():
+            stored = self._model_block(pre + name, dim)
+            want = (lo * hd, hi * hd)
+            if stored != want and not (stored is None and want == (0, H * hd)):
+                views[name] = View(dim, H * hd, stored, want, split)
+        attn.views = views
+
+    def _embed(self, tokens: torch.Tensor, patches=None) -> torch.Tensor:
+        g = self.vocab_group
+        if g is None:
+            return lm._embed(self, tokens, patches)
+        lo, n = self.vocab_lo, self.emb.shape[0]
+        inside = (tokens >= lo) & (tokens < lo + n)
+        x = F.embedding(torch.where(inside, tokens - lo, 0), self.emb) \
+            * inside[..., None].to(self.emb.dtype)
+        x = api.row_output(x, g).to(torch.bfloat16)
+        nv = self.cfg.n_vision_tokens
+        if nv and patches is not None:
+            x[:, :nv] += patches.to(torch.bfloat16) @ self.vis_proj
+        return x
+
+    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lm.loss_fn`` of this rank's rows (aux weight 0.01)."""
+        x = self._embed(tokens, patches)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, aux = lm.run_blocks(self, x, positions)
+        h = L.apply_norm(self.cfg.norm, x, self.ln_f)
+        g = self.vocab_group
+        if g is None:
+            loss = lm.cross_entropy(h @ self.head(), labels)
+        else:
+            loss = _vocab_cross_entropy(api.column_input(h, g) @ self.head(),
+                                        labels, self.vocab_lo, g)
+        return loss + AUX_WEIGHT * aux
+
+    # -- the state as one rank holds it --
+
+    def local_params(self) -> Dict[str, torch.Tensor]:
+        """This rank's shard of each parameter (a DTensor's local tensor:
+        in-place updates reach FSDP's storage), by name."""
+        return {n: _local(p) for n, p in self.named_parameters()}
+
+    def replicated(self) -> List[str]:
+        """The parameters whose spec names no "data": whole over the
+        batch ranks."""
+        return [n for n, s in self.spec.items()
+                if not any("data" in _axes(e) for e in s)]
+
+    def by_hand(self) -> List[str]:
+        """The sharded parameters that FSDP cannot hold, each an MoE's
+        float32 router in a unit of bf16 weights (:class:`_DataGather`)."""
+        return [n for n, s in self.spec.items() if n.endswith("moe.router")
+                and any("data" in _axes(e) for e in s)]
+
+    def local_grads(self) -> Dict[str, torch.Tensor]:
+        """This rank's shard of each gradient, in parameter order (zeros
+        for an unused parameter): FSDP's reduce-scattered mean for the
+        sharded ones, the batch ranks' f32 mean for the replicated ones
+        (one all-reduce a batch axis)."""
+        grads = {n: torch.zeros_like(_local(p)) if p.grad is None
+                 else _local(p.grad) for n, p in self.named_parameters()}
+        groups = self.place.batch
+        if groups:
+            import torch.distributed as dist
+            names = self.replicated()
+            flat = torch.cat([grads[n].float().reshape(-1) for n in names])
+            for g in groups:
+                dist.all_reduce(flat, group=g)
+            flat /= math.prod(dist.get_world_size(g) for g in groups)
+            for n, piece in zip(names, flat.split(
+                    [grads[n].numel() for n in names])):
+                grads[n] = piece.view(grads[n].shape).to(grads[n].dtype)
+        return grads
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``adamw.global_norm`` of the whole gradients from this rank's
+        shards: each leaf's f32 sum of squares summed over the axes that
+        split it (one all-reduce a set of axes), then over the leaves in
+        order."""
+        import torch.distributed as dist
+        sq = {n: torch.sum(g.float() ** 2) for n, g in grads.items()}
+        by_axes: Dict[Tuple, List[str]] = {}
+        for n, s in self.spec.items():
+            axes = tuple(a for a in ("data", "model")
+                         if any(a in _axes(e) for e in s)
+                         and self.place.group.get(a) is not None)
+            by_axes.setdefault(axes, []).append(n)
+        for axes, names in by_axes.items():
+            if not axes:
+                continue
+            v = torch.stack([sq[n] for n in names])
+            for a in axes:
+                dist.all_reduce(v, group=self.place.group[a])
+            sq.update(zip(names, v.unbind()))
+        return torch.sqrt(sum(sq[n] for n in grads))
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the batch ranks (itself without any)."""
+        import torch.distributed as dist
+        if not self.place.batch:
+            return t
+        t = t.clone()
+        for g in self.place.batch:
+            dist.all_reduce(t, group=g)
+        return t / math.prod(dist.get_world_size(g) for g in self.place.batch)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def build(cfg, mesh: Mesh, device=None,
+          state: Optional[Dict[str, torch.Tensor]] = None) -> ShardedLM:
+    """This rank's :class:`ShardedLM` of ``cfg`` on ``mesh`` (``device``:
+    None = CUDA), its parameters requiring grad and sharded by
+    ``fully_shard`` (one unit a layer, then the root); loaded from
+    ``state`` (this rank's :func:`shard_state`) if given, else left
+    uninitialised (the dry run's fake tensors)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    model = ShardedLM(cfg, mesh, resolve_device(device))
+    model.requires_grad_(True)
+    names = model._names
+    ignored = {model.get_parameter(n)
+               for n in model.replicated() + model.by_hand()}
+
+    def placement(p):
+        spec = model.spec[names[id(p)]]
+        return Shard(next(i for i, e in enumerate(spec) if "data" in _axes(e)))
+    dm = model.place.fsdp_mesh()
+    for blk in model.blocks:
+        fully_shard(blk, mesh=dm, shard_placement_fn=placement,
+                    ignored_params=ignored)
+    fully_shard(model, mesh=dm, shard_placement_fn=placement,
+                ignored_params=ignored)
+    if state is not None:
+        with torch.no_grad():
+            for n, p in model.local_params().items():
+                if p.shape != state[n].shape:
+                    raise ValueError(f"{n}: shard {tuple(state[n].shape)} "
+                                     f"for a rank that holds {tuple(p.shape)}")
+                p.copy_(state[n])
+    return model
+
+
+def make_step(opt_cfg: adamw.OptConfig):
+    """``train_step(model, opt_state, batch) -> {"loss", "lr",
+    "grad_norm"}`` of a :class:`ShardedLM`: the loss of this rank's rows
+    (``batch``: :func:`rank_rows`), its backward (FSDP's gathers and
+    reduce-scatters, the model group's collectives), the gradients'
+    shards (:meth:`ShardedLM.local_grads`) and their whole norm, and one
+    AdamW update of this rank's shards and ``opt_state`` (``adamw.init``
+    of ``model.local_params()``) in place. The loss is averaged over the
+    batch ranks."""
+    def train_step(model: ShardedLM, opt_state, batch):
+        loss = model(batch["tokens"], batch["labels"], batch.get("patches"))
+        loss.backward()
+        grads = model.local_grads()
+        gnorm = model.grad_norm(grads)
+        _, _, stats = adamw.update(opt_cfg, grads, opt_state,
+                                   model.local_params(), grad_norm=gnorm)
+        model.zero_grad(set_to_none=True)
+        return {"loss": model.batch_mean(loss.detach()), **stats}
+    return train_step
+
+
+# --- the record of collectives -----------------------------------------------
+
+
+_KINDS = (("allreduce", "all-reduce"), ("allgather", "all-gather"),
+          ("reduce_scatter", "reduce-scatter"), ("alltoall", "all-to-all"))
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(y) for y in x)
+    return 0
+
+
+class Recorder(TorchDispatchMode):
+    """Logs every c10d collective dispatched while it is active, as (kind,
+    result bytes, group size): the kind in HLO's words, the bytes of its
+    output (for an all-reduce its tensors), the size of its process
+    group. Any other c10d collective raises: nothing goes unrecorded."""
+
+    def __init__(self):
+        super().__init__()
+        self.log: List[Tuple[str, int, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace == "c10d":
+            from torch._C._distributed_c10d import ProcessGroup
+            name = func.__name__.split(".")[0]
+            kind = next((k for key, k in _KINDS if key in name), None)
+            if kind is None:
+                raise RuntimeError(f"unrecorded collective {func}")
+            names = [a.name for a in func._schema.arguments]
+            group = args[names.index("process_group")]
+            self.log.append((kind, _nbytes(args[0]),
+                             ProcessGroup.unbox(group).size()))
+        return func(*args, **kwargs)

@@ -1,0 +1,205 @@
+"""The processes of ``test_torch_spmd.py`` (no tests here): each function
+runs in a rank started by ``torch_dp_workers.run`` (gloo, a ``file://``
+rendezvous) or in the test process itself with no group, and returns
+what it found. Imports only torch and the port."""
+import dataclasses
+import itertools
+import os
+
+import torch
+
+from repro_torch.configs import registry as preg
+from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import extra_inputs
+from repro_torch.models import layers as PL, model as PM
+from repro_torch.optim import adamw
+from repro_torch.parallel import api, spmd
+from repro_torch.train import loop as PT
+
+B, S, STEPS = 4, 32, 3
+OPT = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
+NAMES = ("data", "model")
+# each case: (arch, changes to its smoke config), shaped so that on the
+# (2, 2) mesh every branch of the sharded step that a production cell of
+# the seven archs takes runs somewhere
+CASES = {
+    # GQA (4 q heads over 2 kv heads), q/k/v biases, a tied head on the
+    # vocab-parallel embedding
+    "qwen2.5-3b": ("qwen2.5-3b", {}),
+    # experts and shared experts over "model", the router by hand
+    "deepseek-moe-16b": ("deepseek-moe-16b", {}),
+    # a tied head, kv heads that divide, no biases
+    "gemma-7b": ("gemma-7b", {}),
+    # LayerNorm: norm biases are FSDP's ignored parameters
+    "stablelm-12b": ("stablelm-12b", {}),
+    # q heads that do not divide over "model" (40 over 16 at full width;
+    # 5 over 2 here): every rank runs all heads on gathered weights
+    "qwen1.5-32b": ("qwen1.5-32b", {"n_heads": 5, "n_kv_heads": 5}),
+    # patches added in place to the vocab-parallel embedding
+    "internvl2-2b": ("internvl2-2b", {}),
+    # a vocabulary that does not divide (92553 at full width; 511 here):
+    # the embedding and the logits replicated over "model", with patches
+    "internvl2-2b-v511": ("internvl2-2b", {"vocab": 511}),
+    # a LayerNorm MoE without shared experts
+    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {}),
+}
+
+
+def smoke(case: str, registry=preg):
+    """The case's smoke config (``registry``: the port's, or the
+    reference's for the same case), with the per-shard dispatch for an
+    MoE: the routing the sharded step does on each data shard."""
+    arch, changes = CASES[case]
+    cfg = registry.get_config(arch).smoke_model()
+    return dataclasses.replace(cfg, opt_moe_local_dispatch=bool(
+        cfg.n_experts), **changes)
+
+
+def batch(case: str, step: int):
+    """Step ``step``'s batch of ``SyntheticLM`` (B, S) on the CPU, with a
+    vision arch's patches as the launcher draws them."""
+    cfg = smoke(case)
+    extra = extra_inputs(cfg, B, S, "cpu")
+    return SyntheticLM(DataConfig(cfg.vocab, S, B)).torch_batch(
+        step, "cpu", extra(step) if extra else None)
+
+
+def initial(case: str, init_dir=None):
+    """The whole model of ``case`` on the CPU: seed 0 of the port, or the
+    weights saved as ``init_dir/<case>.init.pt`` (the reference's seed 0
+    carried over)."""
+    model = PM.init_params(smoke(case), 0, "cpu")
+    if init_dir is not None:
+        state = torch.load(os.path.join(init_dir, f"{case}.init.pt"))
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n])
+    return model
+
+
+def reference_routes(init_dir, case: str):
+    """The reference's routing of every MoE call of its sharded steps, in
+    call order: (sorted experts (dp, T/dp, K), probabilities (dp, T/dp,
+    E)) a call, shard g of the batch at [g]."""
+    return torch.load(os.path.join(init_dir, f"{case}.ref.pt"))["routes"]
+
+
+def _route_log(log, follow=None):
+    """Patch ``PL.moe_route`` to log each call's sorted experts and its
+    router probabilities; with ``follow``, its i-th call chooses the
+    experts ``follow(i)`` instead (``torch_parity.follow_reference``'s
+    rule: the gates stay its own probabilities of them). Returns the
+    original."""
+    orig = PL.moe_route
+    calls = itertools.count()
+
+    def route(p, xf, cfg, C, router=None):
+        r = orig(p, xf, cfg, C, router)
+        if follow is not None:
+            r = PL.moe_assign(r.probs, follow(next(calls)).to(
+                r.eidx.device, torch.long), C)
+        log.append((r.eidx.sort(dim=1).values.clone(),
+                    r.probs.detach().clone()))
+        return r
+    PL.moe_route = route
+    return orig
+
+
+def one_process(case: str, shape=(2, 2), init_dir=None, follow=False):
+    """``STEPS`` steps of ``make_step`` in one process under a described
+    mesh of ``shape`` (the per-shard dispatch sees its batch shards), from
+    :func:`initial`: losses, norms, every routing call and the
+    parameters. With ``follow`` its routing call 2k + g (shard g of
+    layer call k) chooses the reference's experts of call k, shard g."""
+    cfg = smoke(case)
+    model = initial(case, init_dir).requires_grad_(True)
+    state = adamw.init(dict(model.named_parameters()))
+    step = PT.make_step(cfg, OPT, PT.TrainConfig())
+    log, losses, norms = [], [], []
+    if follow:
+        routes = reference_routes(init_dir, case)
+        orig = _route_log(log, lambda i: routes[i // 2][0][i % 2])
+    else:
+        orig = _route_log(log)
+    try:
+        with api.mesh_context(api.Mesh(NAMES, shape)):
+            for s in range(STEPS):
+                stats = step(model, state, batch(case, s))
+                losses.append(stats["loss"].clone())
+                norms.append(stats["grad_norm"].clone())
+    finally:
+        PL.moe_route = orig
+    return {"losses": losses, "norms": norms, "routes": log,
+            "params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()}}
+
+
+def sharded(rank, world, case: str, shape, init_dir=None, follow=False):
+    """``STEPS`` steps of ``spmd.make_step`` on a mesh of ``shape`` over
+    the group's ranks, from the whole model of :func:`initial` cut by
+    ``shard_state``: losses, norms, routing calls, this rank's shards
+    of the parameters, and the collectives of each step
+    (``spmd.Recorder``). With ``follow`` its routing call k chooses the
+    reference's experts of call k for this rank's batch shard."""
+    cfg = smoke(case)
+    mesh = make_mesh(NAMES, shape)
+    model = spmd.build(cfg, mesh, "cpu", spmd.shard_state(
+        initial(case, init_dir), mesh, rank))
+    state = adamw.init(model.local_params())
+    step = spmd.make_step(OPT)
+    log, losses, norms, logs = [], [], [], []
+    if follow:
+        routes, g = reference_routes(init_dir, case), model.place.batch_shard
+        orig = _route_log(log, lambda i: routes[i][0][g])
+    else:
+        orig = _route_log(log)
+    try:
+        for s in range(STEPS):
+            rec = spmd.Recorder()
+            with rec:
+                stats = step(model, state, spmd.rank_rows(
+                    batch(case, s), model.place))
+            logs.append(rec.log)
+            losses.append(stats["loss"].clone())
+            norms.append(stats["grad_norm"].clone())
+    finally:
+        PL.moe_route = orig
+    return {"losses": losses, "norms": norms, "routes": log,
+            "collectives": logs, "at": model.place.at,
+            "params": {n: p.detach().clone()
+                       for n, p in model.local_params().items()}}
+
+
+def today(arch: str):
+    """``one_process`` without a mesh: today's step, for world 1."""
+    cfg = dataclasses.replace(smoke(arch), opt_moe_local_dispatch=False)
+    model = PM.init_params(cfg, 0, "cpu").requires_grad_(True)
+    state = adamw.init(dict(model.named_parameters()))
+    step = PT.make_step(cfg, OPT, PT.TrainConfig())
+    losses = [step(model, state, batch(arch, s))["loss"].clone()
+              for s in range(STEPS)]
+    return {"losses": losses, "params": {
+        n: p.detach().clone() for n, p in model.named_parameters()}}
+
+
+def world(rank, world_size, shape, init_dir):
+    """Every case, sharded on ``shape`` from the weights in ``init_dir``;
+    an MoE's again choosing the reference's experts (under
+    "followed")."""
+    out = {}
+    for c in CASES:
+        out[c] = sharded(rank, world_size, c, shape, init_dir)
+        if smoke(c).n_experts:
+            out[c]["followed"] = sharded(rank, world_size, c, shape,
+                                         init_dir, follow=True)
+    return out
+
+
+def world_one(rank, world_size):
+    """Both archs sharded on (1, 1), beside today's step in the same
+    process (its result under "today")."""
+    return {"sharded": {a: sharded(rank, world_size, a, (1, 1))
+                        for a in ARCHS},
+            "today": {a: today(a) for a in ARCHS}}
