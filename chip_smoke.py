@@ -32,12 +32,16 @@ steps each at their published widths, and one forward and backward of
 jamba cut to 8 of its 32 layers; those four archs' smoke models on CUDA
 against the CPU and resumed; the SSD's gradient at chunk 128; the flash
 kernel must not launch; qwen2.5-3b's steps again with ``opt_remat_dots``,
-equal to plain remat bit for bit; the training dry run: two production
-cells, qwen2.5-3b and deepseek-moe-16b at train_4k on a fake group of
-256 ranks, through ``launch/dryrun.py`` in processes of their own, and
-qwen2.5-3b whole through the sharded step ``parallel/spmd`` on one NCCL
-rank, bit for bit with the plain step, its collectives and peak held
-to the dry run's fake run of the same step) and the four torch examples
+equal to plain remat bit for bit; the training dry run: three production
+cells, qwen2.5-3b, deepseek-moe-16b and jamba-v0.1-52b at train_4k on a
+fake group of 256 ranks, through ``launch/dryrun.py`` in processes of
+their own, and qwen2.5-3b whole through the sharded step
+``parallel/spmd`` on one NCCL rank, bit for bit with the plain step, its
+collectives and peak held to the dry run's fake run of the same step,
+then deepseek-moe-16b's cut, mamba2-2.7b and seamless-m4t-medium whole
+through it, each bit for bit with its own training run; jamba's sharded
+step is held on the CPU only, its cut being too large for one card
+with AdamW) and the four torch examples
 (``examples/torch_*.py`` at their counterparts' settings, quickstart's
 pod cut to 4^3, the routes and
 the fault walkthrough's simulations held to the CPU) -- checks that the
@@ -193,10 +197,17 @@ NEAR_TIE = 1e-2
 # through moe_ffn (phase train_family_full)
 PARALLEL_STEPS, PARALLEL_SHARDS = 3, 2
 # the dry run (launch/dryrun.py, a fake group of 256 ranks, subprocesses):
-# its production cells, and the sharded step of qwen2.5-3b (its fake peak
-# within DRYRUN_PEAK_REL of the card's) and of deepseek-moe-16b's cut at
-# (1, 1) on one NCCL rank for PARALLEL_STEPS steps
-DRYRUN_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
+# its production cells, and the sharded step at (1, 1) on one NCCL rank
+# for PARALLEL_STEPS steps: qwen2.5-3b (its fake peak within
+# DRYRUN_PEAK_REL of the card's), then DRYRUN_WORLD1_ARCHS at their
+# train_family_full size (deepseek-moe-16b's cut, mamba2-2.7b and
+# seamless-m4t-medium whole), each held to that run's losses. jamba's
+# 8-layer cut does not fit one card with AdamW (57.8 GB for its forward
+# and backward alone), so its sharded step is held on the CPU only
+# (tests/test_torch_spmd_families.py); its production cell runs here
+DRYRUN_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b", "jamba-v0.1-52b")
+DRYRUN_WORLD1_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b",
+                       "seamless-m4t-medium")
 DRYRUN_PEAK_REL = 0.15
 DRYRUN_TIMEOUT_S = 600
 # one MoE layer's output, CUDA against the CPU (tests/test_torch_moe.py's
@@ -211,9 +222,10 @@ SSD_GRAD_REL = 1e-5
 # the time limit
 REPAIR_DIMS = (8, 8, 8)
 # the torch examples (examples/torch_*.py) at their counterparts' settings;
-# train_e2e at its docstring's full model (--d-model 768) for its default
-# 60 steps, not the docstring's 300 (67-116 s on the card): the time limit
-EXAMPLE_E2E_STEPS = 60
+# train_e2e at its docstring's full model (--d-model 768) for 30 steps, not
+# its default 60 (26.9 s on a slow host) or the docstring's 300 (67-116 s
+# on the card): the time limit
+EXAMPLE_E2E_STEPS = 30
 # quickstart on a 4^3 pod (its ``run``, as the CPU tests run it), cut from
 # its counterpart's 4x4x8 for the time limit (HiGHS on the host: 122-146 s
 # at 4x4x8 on the card's machine)
@@ -227,14 +239,14 @@ SIM_MODES_CYCLES = 500
 # s at 3000 until PR 28)
 FAULT_SWEEP_CYCLES, FAULT_SWEEP_WARMUP, FAULT_SWEEP_T_FAULT = 1500, 500, 750
 # the chaos campaign's arrivals at PDTT 8^3, cut from the reference's 20
-# for the time limit (its campaign: 83-104 s at 20); seed 7's 10 still
-# bring a storm, a degraded disconnection, restores and a full heal (22
-# events)
-CHAOS_ARRIVALS = 10
-# the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 (PR 25:
-# 10, PR 26: 5) for the time limit (two campaigns: ~52 s at 20, 26-41 s at
-# 10, 22.3 s at 5 with the build)
-CHAOS_REPLAY_ARRIVALS = 3
+# for the time limit (its campaign: 83-104 s at 20, 66.1 s at 10 on a slow
+# host); seed 7's 6 still bring a storm of 4, a degraded disconnection, 2
+# restores and a full heal (16 events, 22 at 10: phase_chaos on the CPU)
+CHAOS_ARRIVALS = 6
+# the chaos replay's arrivals a campaign at PDTT 4^3, cut from 20 for the
+# time limit (two campaigns: ~52 s at 20, 26-41 s at 10, 22.3 s at 5 with
+# the build, 18.4 s at 3 on a slow host)
+CHAOS_REPLAY_ARRIVALS = 2
 
 
 def check(cond, msg):
@@ -1846,7 +1858,7 @@ def phase_sim_modes(PNS, PT, PF, TR, route_pod, PipelineConfig,
 def phase_fault_sweep(PNS, PT, PF, TR, route_pod, PipelineConfig,
                       dims=(8, 8, 8), cycles=FAULT_SWEEP_CYCLES,
                       warmup=FAULT_SWEEP_WARMUP,
-                      t_fault=FAULT_SWEEP_T_FAULT, prof_cycles=512,
+                      t_fault=FAULT_SWEEP_T_FAULT, prof_cycles=256,
                       sat=dict(step=0.005, max_rate=0.08, cycles=1500,
                                warmup=500), dev="cuda", profile=None):
     """The first OCS colour dies at ``t_fault`` under static and adaptive
@@ -2051,8 +2063,10 @@ PR16_LAMBDAS = (0.0024193284642204, 0.0020397131974831, 0.0022107287458099)
 # the stored workload fabrics evaluated: deepseek-moe-16b's, cut from it and
 # gemma-7b's (~40 s each on the card) for the time limit
 WL_ARCHS = ("deepseek-moe-16b",)
-# benchmarks/bench_workload.py's evaluation
-WL_SAT = dict(step=0.02, cycles=2000, warmup=600)
+# benchmarks/bench_workload.py's evaluation (step 0.02), its replay cut
+# from 2000 cycles and a warm-up of 600 for the time limit (the phase:
+# 46.1 s at 2000 on a slow host)
+WL_SAT = dict(step=0.02, cycles=1000, warmup=300)
 WL_RATES, WL_CYCLES = [0.1, 0.4], 1200
 
 
@@ -2625,12 +2639,15 @@ def dryrun_process(outdir, *args, dev="cuda"):
 def spmd_world1(cfg, dev="cuda"):
     """``cfg`` from seed 0 through ``spmd.build`` and ``spmd.make_step`` on
     a (1, 1) mesh of the one NCCL rank that is up, at train_full's
-    settings (B 4, S 128, lr 3e-4, warmup 5, total 8) for PARALLEL_STEPS
-    steps: (losses, the collectives its recorder logged each step, the
-    step times, the card's peak over the first step above what was
-    allocated before, the bytes of the rank's state)."""
+    settings (B 4, S 128, lr 3e-4, warmup 5, total 8; an
+    encoder-decoder's frames from ``extra_inputs``, as the launcher
+    draws them) for PARALLEL_STEPS steps: (losses, the collectives its
+    recorder logged each step, the step times, the card's peak over the
+    first step above what was allocated before, the bytes of the rank's
+    state)."""
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import extra_inputs
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import OptConfig, init
     from repro_torch.parallel import spmd
@@ -2648,11 +2665,13 @@ def spmd_world1(cfg, dev="cuda"):
         lr=TRAIN_LR, total_steps=TRAIN_STEPS,
         warmup_steps=max(TRAIN_STEPS // 10, 5)))
     data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH))
+    extra = extra_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
     gc.collect()
     torch.cuda.empty_cache()
     losses, logs, times = [], [], []
     for s in range(PARALLEL_STEPS):
-        batch = spmd.rank_rows(data.torch_batch(s, dev), model.place)
+        batch = spmd.rank_rows(data.torch_batch(
+            s, dev, extra(s) if extra else None), model.place)
         torch.cuda.synchronize()
         if s == 0:
             torch.cuda.reset_peak_memory_stats()
@@ -2674,22 +2693,24 @@ def spmd_world1(cfg, dev="cuda"):
     return losses, logs, times, peak, state_bytes
 
 
-def phase_dryrun(fa, get_config, train_losses, moe_losses, dev="cuda"):
-    """The training dry run and the sharded step (``parallel.spmd``). Three
-    dry-run processes start together: (a) DRYRUN_ARCHS' production cells,
-    train_4k on ``single_pod_16x16`` under a fake group of 256 ranks, each
-    through the CLI, and the fake run of (b)'s first step at (1, 1). (b)
-    Meanwhile, on a (1, 1) mesh of one NCCL rank (:func:`spmd_world1`):
-    qwen2.5-3b at full width, whose losses must equal train_full's first
-    ones bit for bit, whose recorder's log of the first step must equal
-    the fake run's (both empty: a world of one rank issues no
-    collective), and whose fake ``peak_live_bytes`` must be within
-    DRYRUN_PEAK_REL of the card's peak over the first step; then
-    deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut, whose MoE runs
-    ``layers.moe_ffn_ep`` with all experts and no group, and whose losses
-    must equal ``moe_losses`` bit for bit (this run's train_family_full of
-    the same cut through ``moe_ffn``, at the same settings). The flash
-    kernel must not launch. Returns its launches."""
+def phase_dryrun(fa, get_config, train_losses, family_losses, dev="cuda"):
+    """The training dry run and the sharded step (``parallel.spmd``). Four
+    dry-run processes start together: (a) DRYRUN_ARCHS' production
+    cells, train_4k on ``single_pod_16x16`` under a fake group of 256
+    ranks, each through the CLI, and the fake run of (b)'s first step at
+    (1, 1). (b) Meanwhile, on a (1, 1) mesh of one NCCL rank
+    (:func:`spmd_world1`): qwen2.5-3b at full width, whose losses must
+    equal train_full's first ones bit for bit, whose recorder's log of
+    the first step must equal the fake run's (both empty: a world of one
+    rank runs no collective), and whose fake ``peak_live_bytes`` must
+    be within DRYRUN_PEAK_REL of the card's peak over the first step;
+    then each arch of DRYRUN_WORLD1_ARCHS at TRAIN_FAMILY_LAYERS' cut
+    (deepseek-moe-16b's MoE runs ``layers.moe_ffn_ep`` with all experts
+    and no group; mamba2-2.7b's Mamba mixers and seamless-m4t-medium's
+    encoder and decoder run unsplit), whose losses must equal
+    ``family_losses[arch]`` bit for bit (this run's train_family_full of
+    the same model at the same settings) and whose log must be empty.
+    The flash kernel must not launch. Returns its launches."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     fa.launches = 0                                    # the dry-run path
@@ -2705,14 +2726,17 @@ def phase_dryrun(fa, get_config, train_losses, moe_losses, dev="cuda"):
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{init_dir}/init",
                             rank=0, world_size=1)
-    moe_arch = "deepseek-moe-16b"
+    families = {}
     try:
         losses, logs, times, peak, state_bytes = spmd_world1(
             get_config(TRAIN_ARCH).model, dev)
-        t_moe = time.perf_counter()
-        moe_cfg = family_config(get_config, moe_arch, TRAIN_FAMILY_LAYERS)
-        m_losses, m_logs, m_times, m_peak, _ = spmd_world1(moe_cfg, dev)
-        t_moe = time.perf_counter() - t_moe
+        for arch in DRYRUN_WORLD1_ARCHS:
+            t_arch = time.perf_counter()
+            fcfg = family_config(get_config, arch, TRAIN_FAMILY_LAYERS)
+            f_losses, f_logs, f_times, f_peak, _ = spmd_world1(fcfg, dev)
+            families[arch] = dict(
+                cfg=fcfg, losses=f_losses, logs=f_logs, times=f_times,
+                peak=f_peak, seconds=time.perf_counter() - t_arch)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(init_dir, ignore_errors=True)
@@ -2758,7 +2782,6 @@ def phase_dryrun(fa, get_config, train_losses, moe_losses, dev="cuda"):
     shutil.rmtree(out, ignore_errors=True)
     fake_peak = fake["memory"]["peak_live_bytes"]
     want = train_losses[:PARALLEL_STEPS]
-    moe_want = list(moe_losses or [])[:PARALLEL_STEPS]
     launches = fa.launches
     emit(phase="dryrun_world1", arch=TRAIN_ARCH, backend="nccl", mesh=[1, 1],
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=PARALLEL_STEPS,
@@ -2772,22 +2795,30 @@ def phase_dryrun(fa, get_config, train_losses, moe_losses, dev="cuda"):
          fake_state_bytes=fake["memory"]["alias_bytes"] - 4,
          fake_trace_s=fake["trace_s"],
          flash_launches=launches)
-    emit(phase="dryrun_world1_moe", arch=moe_arch, backend="nccl",
-         mesh=[1, 1], n_layers=moe_cfg.n_layers, batch=TRAIN_BATCH,
-         seq=TRAIN_SEQ, steps=PARALLEL_STEPS, losses=m_losses,
-         moe_ffn_losses=moe_want, losses_equal=m_losses == moe_want,
-         step_times_s=m_times, collectives=m_logs[0], peak_bytes=m_peak,
-         seconds=t_moe)
+    for arch, f in families.items():
+        want_f = list(family_losses.get(arch) or [])[:PARALLEL_STEPS]
+        emit(phase="dryrun_world1_family", arch=arch, backend="nccl",
+             mesh=[1, 1], family=f["cfg"].family,
+             n_layers=f["cfg"].n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             steps=PARALLEL_STEPS, losses=f["losses"],
+             train_family_full_losses=want_f,
+             losses_equal=f["losses"] == want_f, step_times_s=f["times"],
+             collectives=f["logs"][0], peak_bytes=f["peak"],
+             seconds=f["seconds"])
     emit(phase="dryrun_seconds", seconds=time.perf_counter() - t0,
          waited_for_processes_s=wait_s)
     check(losses == want, f"the sharded step's losses {losses} are not "
           f"train_full's {want}")
-    check(len(moe_want) == PARALLEL_STEPS and m_losses == moe_want,
-          f"{moe_arch}: the sharded step's losses {m_losses} are not "
-          f"moe_ffn's {moe_want}")
-    check(logs[0] == fake["collective_log"] == [] and m_logs[0] == [],
-          f"the real step's collectives {logs[0]} and {m_logs[0]} are not "
-          f"the fake run's {fake['collective_log']}, none at world 1")
+    for arch, f in families.items():
+        want_f = list(family_losses.get(arch) or [])[:PARALLEL_STEPS]
+        check(len(want_f) == PARALLEL_STEPS and f["losses"] == want_f,
+              f"{arch}: the sharded step's losses {f['losses']} are not "
+              f"train_family_full's {want_f}")
+        check(f["logs"][0] == [], f"{arch}: the real step's collectives "
+              f"{f['logs'][0]} at world 1")
+    check(logs[0] == fake["collective_log"] == [],
+          f"the real step's collectives {logs[0]} are not the fake run's "
+          f"{fake['collective_log']}, none at world 1")
     check(abs(fake_peak - peak) <= DRYRUN_PEAK_REL * peak,
           f"fake peak {fake_peak} is not within {DRYRUN_PEAK_REL} of the "
           f"card's {peak}")
@@ -3229,7 +3260,8 @@ def main() -> int:
         family_figures.get("deepseek-moe-16b"))
     dryrun_launches = phase_dryrun(
         fa, get_config, train_losses,
-        family_figures.get("deepseek-moe-16b", {}).get("losses"))
+        {a: family_figures.get(a, {}).get("losses")
+         for a in DRYRUN_WORLD1_ARCHS})
 
     # ---- the torch examples, each counted from zero ------------------------
     example_launches = phase_examples(fa, mp, PT, route_pod, PipelineConfig)

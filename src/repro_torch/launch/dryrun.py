@@ -39,8 +39,10 @@ either package reads it):
 
 The step traces every layer, so nothing is extrapolated from shallower
 models (the reference's ``extrapolated`` is left out). The port's
-sharded step covers the dense and MoE LM families at ``train_4k``; any
-other arch or shape prints a SKIP line and writes nothing.
+sharded step covers every family (dense, MoE, SSM, hybrid and
+encoder-decoder: all ten archs) at ``train_4k`` and at a custom
+training shape; a prefill or decode shape (``prefill_32k``,
+``decode_32k``, ``long_500k``) prints a SKIP line and writes nothing.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
@@ -83,8 +85,8 @@ H100_BYTES = 80e9
 
 
 def in_scope(cfg, shape: ShapeConfig) -> bool:
-    """Whether the sharded step runs this cell: a dense or MoE LM at a
-    training shape (``train_4k``, or one given by ``--batch``/``--seq``)."""
+    """Whether the sharded step runs this cell: any family at a training
+    shape (``train_4k``, or one given by ``--batch``/``--seq``)."""
     from repro_torch.parallel.spmd import FAMILIES
     return cfg.family in FAMILIES and shape.kind == "train"
 

@@ -153,7 +153,11 @@ def forward(model: EncDecLM, frames: torch.Tensor, tokens: torch.Tensor
     x = F.embedding(tokens, model.emb).to(torch.bfloat16)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for blk in model.dec_blocks:
-        x, _ = _layer(_dec_layer, cfg, True, blk, x, enc_x, positions)
+        # each layer reads the encoder's states through a view of its own:
+        # their gradient is summed a layer at a time, in the order the
+        # sharded step's FSDP units (which take them as an input) sum it
+        x, _ = _layer(_dec_layer, cfg, True, blk, x, enc_x.view_as(enc_x),
+                      positions)
     return L.apply_norm(cfg.norm, x, model.ln_f) @ model.lm_head
 
 

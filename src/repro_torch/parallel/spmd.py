@@ -1,5 +1,5 @@
-"""The sharded training step of the dense and MoE LM families: FSDP over
-"data" (HSDP over "pod") and tensor parallelism over "model".
+"""The sharded training step of every LM family: FSDP over "data" (HSDP
+over "pod") and tensor parallelism over "model".
 
 Counterpart of what ``jax.jit(train_step, in_shardings=...)`` makes of
 the reference's step in its dry run (``repro.launch.dryrun.build_lowered``):
@@ -13,8 +13,9 @@ holds on a device. The dimension a spec puts on "model" is cut to the
 rank's block when the module is built; the dimension it puts on "data"
 is sharded by FSDP2's ``fully_shard`` (``Shard(dim)``, one unit a layer
 and one for the root, HSDP with "pod"); a parameter whose spec names no
-"data" (norms, biases, ``vis_proj``) is FSDP's ignored parameter,
-replicated over the batch ranks, its gradient averaged over them here.
+"data" (norms, biases, ``vis_proj``, Mamba's ``conv_w`` and its f32
+leaves) is FSDP's ignored parameter, replicated over the batch ranks,
+its gradient averaged over them here.
 
 Compute over "model" by local shapes, the Megatron pattern. Collectives
 sit at module boundaries (``parallel.api``: ``column_input``, identity
@@ -30,7 +31,18 @@ gives its output):
   replicated bias is sliced and its gradient summed. Where the q heads
   do not divide (qwen1.5-32b's 40 over 16), every rank runs all heads
   on the gathered weights, and keeps its block of their (equal)
-  gradients;
+  gradients. An encoder's self attention is the same, non-causal; a
+  decoder's cross attention reads the encoder's states through
+  ``column_input``;
+- the Mamba2 mixer: each rank runs its block of the SSM heads where
+  they divide. ``in_proj``'s stored block of columns cuts across its
+  ``[z | x | B | C | dt]`` fields (and ``conv_w``'s rows across ``[x |
+  B | C]``), so both are gathered whole over "model" and the rank takes
+  its heads' z, x and dt and all of the B and C its heads read; the
+  replicated ``conv_b``, ``dt_bias``, ``A_log``, ``D`` and ``norm_w``
+  are sliced to its heads and channels. The gated norm runs over all of
+  ``d_inner``: each row's f32 sum of squares is summed over the model
+  group. ``out_proj``'s block of rows is the rank's heads;
 - the GLU MLP (and an MoE's shared experts): columns of ``w1``/``w3``
   and rows of ``w2`` where ``d_ff`` divides;
 - the vocabulary where it divides: a vocab-parallel embedding (each rank
@@ -59,15 +71,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers as L, lm
+from repro_torch.models import layers as L, lm, seq2seq
 from repro_torch.optim import adamw
 from repro_torch.parallel import api
 from repro_torch.parallel.api import BATCH_AXES, Mesh, filter_spec
 from repro_torch.parallel.sharding import spec_for_leaf
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 AUX_WEIGHT = 0.01
 
 
@@ -280,24 +293,50 @@ class _DataGather(torch.autograd.Function):
 # --- the modules ------------------------------------------------------------
 
 
-class Attention(L.Attention):
-    """A rank's attention: ``hq`` q heads and ``hkv`` kv heads, each
-    weight through its :class:`View` (None: as stored); ``group`` the
-    model group when the heads are split over it, else None."""
+def _ranges(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """The ranges ``[(lo, hi), ...]`` of dimension ``dim`` of ``t``, in
+    order, as one tensor: ``t`` itself where they cover it whole."""
+    merged: List[List[int]] = []
+    for lo, hi in ranges:
+        if merged and merged[-1][1] == lo:
+            merged[-1][1] = hi
+        else:
+            merged.append([lo, hi])
+    if merged == [[0, t.shape[dim]]]:
+        return t
+    return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in merged], dim)
+
+
+class _Viewed:
+    """A module whose weights a rank reads through their :class:`View`
+    (None: as stored), gathered over ``model_group``."""
     views: Dict[str, Optional[View]] = {}
     model_group = None
-    group = None
-    hq = hkv = 0
 
     def _w(self, name: str) -> torch.Tensor:
         v = self.views.get(name)
         t = getattr(self, name)
         return t if v is None else _ModelView.apply(t, v, self.model_group)
 
-    def blocked(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
-        """``L.Attention.blocked`` on this rank's heads: the same ops in
-        the same order, between ``column_input`` and ``row_output``."""
+
+class Attention(_Viewed, L.Attention):
+    """A rank's attention: ``hq`` q heads and ``hkv`` kv heads, each
+    weight through its :class:`View`; ``group`` the model group when the
+    heads are split over it, else None."""
+    group = None
+    hq = hkv = 0
+
+    def _out(self, q, k, v, causal: bool) -> torch.Tensor:
+        o = L.blocked_attention(q, k, v, causal=causal,
+                                block=self.cfg.attn_block)
+        return api.row_output(o.reshape(*q.shape[:2], -1) @ self._w("wo"),
+                              self.group)
+
+    def blocked(self, x: torch.Tensor, positions: torch.Tensor,
+                causal: Optional[bool] = None) -> torch.Tensor:
+        """``L.Attention.blocked`` on this rank's heads (``causal``: by
+        default the config's): the same ops in the same order, between
+        ``column_input`` and ``row_output``."""
         cfg = self.cfg
         B, S, _ = x.shape
         x = api.column_input(x, self.group)
@@ -309,10 +348,97 @@ class Attention(L.Attention):
         v = v.view(B, S, self.hkv, cfg.head_dim)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        o = L.blocked_attention(q, k, v, causal=cfg.causal,
-                                block=cfg.attn_block)
-        return api.row_output(o.reshape(B, S, -1) @ self._w("wo"),
-                              self.group)
+        return self._out(q, k, v, cfg.causal if causal is None else causal)
+
+    def enc_kv(self, enc_x: torch.Tensor):
+        """``seq2seq._enc_kv`` on this rank's kv heads: k and v of the
+        encoder's states, which enter through ``column_input``."""
+        cfg = self.cfg
+        shape = enc_x.shape[:2] + (self.hkv, cfg.head_dim)
+        enc_x = api.column_input(enc_x, self.group)
+        k = (enc_x @ self._w("wk")).view(shape)
+        v = (enc_x @ self._w("wv")).view(shape)
+        if cfg.qkv_bias:
+            k = k + self._w("bk").view(shape[2:])
+            v = v + self._w("bv").view(shape[2:])
+        return k, v
+
+    def cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+        """``layers.cross_attention`` (blocked, no RoPE) on this rank's
+        heads: q from ``x`` over :meth:`enc_kv`'s k and v."""
+        cfg = self.cfg
+        q = (api.column_input(x, self.group) @ self._w("wq")).view(
+            x.shape[:2] + (self.hq, cfg.head_dim))
+        if cfg.qkv_bias:
+            q = q + self._w("bq").view(self.hq, cfg.head_dim)
+        return self._out(q, k, v, False)
+
+
+class Mamba(_Viewed, L.Mamba):
+    """A rank's Mamba2 mixer: SSM heads ``heads`` (lo, hi) and the B/C
+    groups ``groups`` they read; ``in_cols`` and ``conv_rows`` the
+    ranges of ``in_proj``'s columns and the conv's channels that the
+    rank computes with; ``group`` the model group when the heads are
+    split over it. Unplanned it holds every head: ``layers.mamba_block``
+    bit for bit."""
+    group = None
+
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device)
+        self.cfg = cfg
+        self.plan((0, cfg.ssm_heads), (0, cfg.ssm_groups))
+
+    def plan(self, heads: Tuple[int, int], groups: Tuple[int, int]) -> None:
+        cfg = self.cfg
+        P, N, d_in = cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+        GN = cfg.ssm_groups * N
+        self.heads, self.groups = heads, groups
+        x = (heads[0] * P, heads[1] * P)
+        bc = (groups[0] * N, groups[1] * N)
+        self.conv_rows = (x, (d_in + bc[0], d_in + bc[1]),
+                          (d_in + GN + bc[0], d_in + GN + bc[1]))
+        dt = 2 * d_in + 2 * GN
+        self.in_cols = (x,) + tuple((d_in + lo, d_in + hi)
+                                    for lo, hi in self.conv_rows) + \
+            ((dt + heads[0], dt + heads[1]),)
+
+    def _gated_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """``rmsnorm(g, norm_w)`` over all of ``d_inner``: this rank's
+        channels' f32 sums of squares summed over the model group."""
+        w = self._w("norm_w")
+        if self.group is None:
+            return L.rmsnorm(g, w)
+        gf = g.float()
+        ms = api.summed((gf * gf).sum(-1, keepdim=True), self.group) / \
+            self.cfg.d_inner
+        gf = gf * torch.rsqrt(ms + 1e-6)
+        return (gf * (1.0 + w.float())).to(g.dtype)
+
+    def blocked(self, x: torch.Tensor) -> torch.Tensor:
+        """``layers.mamba_block`` (x (B, S, D) -> (B, S, D)) on this
+        rank's heads: the same ops in the same order, between
+        ``column_input`` and ``row_output``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        h, g = self.heads[1] - self.heads[0], self.groups[1] - self.groups[0]
+        x = api.column_input(x, self.group)
+        z, xbc_raw, dt_raw = torch.split(
+            x @ _ranges(self._w("in_proj"), 1, self.in_cols),
+            [h * P, h * P + 2 * g * N, h], dim=-1)
+        xbc = F.silu(L._causal_conv(
+            xbc_raw, _ranges(self._w("conv_w"), 0, self.conv_rows),
+            _ranges(self._w("conv_b"), 0, self.conv_rows)))
+        xs, Bm, Cm = torch.split(xbc, [h * P, g * N, g * N], dim=-1)
+        xh = xs.reshape(B, S, h, P)
+        dt = L.softplus(dt_raw.float() + self._w("dt_bias"))
+        y, _ = L.ssd_chunked(xh, dt, -torch.exp(self._w("A_log")),
+                             Bm.reshape(B, S, g, N), Cm.reshape(B, S, g, N),
+                             min(cfg.ssm_chunk, S))
+        y = y + xh.float() * self._w("D")[:, None]
+        y = self._gated_norm(y.reshape(B, S, h * P).to(x.dtype) * F.silu(z))
+        return api.row_output(y @ self._w("out_proj"), self.group)
 
 
 class MLP(L.MLP):
@@ -327,21 +453,27 @@ class MLP(L.MLP):
 
 
 class Block(lm.Block):
-    """``lm.Block`` with this module's attention and MLP; its MoE runs
-    ``layers.moe_ffn_ep`` over this rank's experts."""
+    """``lm.Block`` with this module's attention or Mamba mixer and MLP;
+    its MoE runs ``layers.moe_ffn_ep`` over this rank's experts."""
     first_expert = 0
     expert_group = None
     batch_groups: Tuple = ()
     router_gather: Optional[Tuple] = None
 
     def __init__(self, cfg, mixer: str, ffn: Optional[str]):
-        if mixer != "attn":
-            raise ValueError(f"{cfg.name}: the sharded step runs attention "
-                             "layers only")
         super().__init__(cfg, mixer, ffn, "meta")
-        self.attn = Attention(cfg, "meta")
+        if mixer == "attn":
+            self.attn = Attention(cfg, "meta")
+        else:
+            self.mamba = Mamba(cfg, "meta")
         if ffn == "mlp":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        if self.mixer == "attn":
+            return super().forward(x, positions)
+        h = L.apply_norm(self.cfg.norm, x, self.ln1)
+        return self._ffn(x + self.mamba.blocked(h))
 
     def _ffn(self, x: torch.Tensor, decode: bool = False):
         if self.ffn != "moe":
@@ -352,6 +484,45 @@ class Block(lm.Block):
         f, aux = L.moe_ffn_ep(self.moe, h, self.cfg, self.first_expert,
                               self.expert_group, self.batch_groups, router)
         return x + f, aux
+
+
+class EncBlock(seq2seq.EncBlock):
+    """``seq2seq.EncBlock`` with this module's attention and MLP; called,
+    it is ``seq2seq._enc_layer``'s training form on this rank's heads
+    (FSDP gathers a layer when it is called)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, "meta")
+        self.cfg = cfg
+        self.attn = Attention(cfg, "meta")
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        norm = self.cfg.norm
+        x = x + self.attn.blocked(L.apply_norm(norm, x, self.ln1), positions,
+                                  causal=False)
+        return x + self.mlp(L.apply_norm(norm, x, self.ln2))
+
+
+class DecBlock(seq2seq.DecBlock):
+    """``seq2seq.DecBlock`` with this module's attentions and MLP; called,
+    it is ``seq2seq._dec_layer``'s training form on this rank's heads."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, "meta")
+        self.cfg = cfg
+        self.attn = Attention(cfg, "meta")
+        self.xattn = Attention(cfg, "meta")
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
+
+    def forward(self, x: torch.Tensor, enc_x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        norm = self.cfg.norm
+        x = x + self.attn.blocked(L.apply_norm(norm, x, self.ln1), positions)
+        k, v = self.xattn.enc_kv(enc_x)
+        x = x + self.xattn.cross(L.apply_norm(norm, x, self.ln_x), k, v)
+        return x + self.mlp(L.apply_norm(norm, x, self.ln2))
 
 
 def _vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -373,20 +544,21 @@ def _vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (torch.log(se) + mx - ll).mean()
 
 
-class ShardedLM(lm.DecoderLM):
-    """One rank's share of a dense or MoE decoder-only LM on a mesh that
-    holds a DeviceMesh (module docstring), built by :func:`build`. Its
-    parameters have ``lm.DecoderLM``'s names and order; ``forward`` is
-    the training loss of this rank's rows."""
+class _Sharded:
+    """One rank's share of a model on a mesh that holds a DeviceMesh
+    (module docstring), built by :func:`build`: what :class:`ShardedLM`
+    and :class:`ShardedEncDec` share. A subclass builds its model's
+    modules on ``meta`` with this module's layers, then calls
+    :meth:`_shard`; its parameters keep the plain model's names and
+    order, and ``forward(batch)`` is the training loss of this rank's
+    rows."""
 
-    def __init__(self, cfg, mesh: Mesh, device):
-        if cfg.family not in FAMILIES:
-            raise ValueError(f"{cfg.name} ({cfg.family}) is not in the "
-                             "sharded step yet")
-        super().__init__(cfg, "meta")
-        self.blocks = nn.ModuleList(Block(cfg, mx, f) for mx, f in self.kinds)
+    def _shard(self, mesh: Mesh, device) -> None:
+        """Plan this rank's computation, then give every parameter its
+        block's shape on ``device``, uninitialised."""
         self.place = place = Place(mesh)
         self.spec = specs(self, mesh)
+        self._plan_vocab(place)
         self._plan(place)
         names, hand = self._names, set(self.by_hand())
         for mod in self.modules():
@@ -411,28 +583,30 @@ class ShardedLM(lm.DecoderLM):
         r = self.place.at["model"]
         return r * n, (r + 1) * n
 
-    def _plan(self, place: Place) -> None:
-        cfg, m, r = self.cfg, place.m, place.at["model"]
-        V = cfg.vocab
+    def _views(self, pre: str, need: Dict[str, Tuple], partial: bool
+               ) -> Dict[str, View]:
+        """The :class:`View` of each weight ``pre + name`` whose stored
+        block is not what the rank computes with, ``need[name]`` = (dim,
+        (lo, hi), size of the dim), or whose gradient the ranks sum
+        (``partial``) over a whole replicated tensor."""
+        views = {}
+        for name, (dim, want, size) in need.items():
+            stored = self._model_block(pre + name, dim)
+            if stored == want or (stored is None and want == (0, size)
+                                  and not partial):
+                continue
+            views[name] = View(dim, size, stored, want, partial)
+        return views
+
+    def _plan_vocab(self, place: Place) -> None:
+        m, V = place.m, self.cfg.vocab
         self.vocab_group = place.model if m > 1 and V % m == 0 else None
-        self.vocab_lo = r * V // m if self.vocab_group is not None else 0
-        for i, blk in enumerate(self.blocks):
-            pre = f"blocks.{i}."
-            self._plan_attention(blk.attn, pre + "attn.", place)
-            if blk.ffn == "mlp":
-                blk.mlp.group = place.model \
-                    if self._model_block(pre + "mlp.w1", 1) else None
-            elif blk.ffn == "moe":
-                E, Fs = cfg.n_experts, cfg.moe_d_ff * cfg.n_shared_experts
-                if m > 1 and (E % m or Fs % m):
-                    raise ValueError(f"{cfg.name}: {E} experts and shared "
-                                     f"width {Fs} must divide over {m}")
-                blk.first_expert = r * E // m
-                blk.expert_group = place.model
-                blk.batch_groups = place.batch
-                if pre + "moe.router" in self.by_hand() and place.batch:
-                    blk.router_gather = (0, place.group.get("data"),
-                                         place.group.get("pod"))
+        self.vocab_lo = place.at["model"] * V // m \
+            if self.vocab_group is not None else 0
+
+    def _plan_mlp(self, mlp: MLP, pre: str) -> None:
+        mlp.group = self.place.model \
+            if self._model_block(pre + "w1", 1) else None
 
     def _plan_attention(self, attn: Attention, pre: str, place: Place):
         cfg, m, r = self.cfg, place.m, place.at["model"]
@@ -451,13 +625,27 @@ class ShardedLM(lm.DecoderLM):
                 "wo": (0, q, Hq)}
         if cfg.qkv_bias:
             need.update(bq=(0, q, Hq), bk=(0, kv, Hkv), bv=(0, kv, Hkv))
-        views = {}
-        for name, (dim, (lo, hi), H) in need.items():
-            stored = self._model_block(pre + name, dim)
-            want = (lo * hd, hi * hd)
-            if stored != want and not (stored is None and want == (0, H * hd)):
-                views[name] = View(dim, H * hd, stored, want, split)
-        attn.views = views
+        attn.views = self._views(pre, {
+            n: (dim, (lo * hd, hi * hd), H * hd)
+            for n, (dim, (lo, hi), H) in need.items()}, split)
+
+    def _plan_mamba(self, mb: Mamba, pre: str, place: Place) -> None:
+        cfg, m, r = self.cfg, place.m, place.at["model"]
+        H, G, P = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_head_dim
+        d_in, GN = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+        split = m > 1 and H % m == 0
+        h = (r * H // m, (r + 1) * H // m) if split else (0, H)
+        rep = H // G
+        mb.plan(h, (h[0] // rep, (h[1] - 1) // rep + 1))
+        mb.group = place.model if split else None
+        mb.model_group = place.model
+        C, n_in = d_in + 2 * GN, 2 * d_in + 2 * GN + H
+        rows = (h[0] * P, h[1] * P)
+        mb.views = self._views(pre, {
+            "in_proj": (1, (0, n_in), n_in), "conv_w": (0, (0, C), C),
+            "conv_b": (0, (0, C), C), "dt_bias": (0, h, H),
+            "A_log": (0, h, H), "D": (0, h, H), "norm_w": (0, rows, d_in),
+            "out_proj": (0, rows, d_in)}, split)
 
     def _embed(self, tokens: torch.Tensor, patches=None) -> torch.Tensor:
         g = self.vocab_group
@@ -473,20 +661,15 @@ class ShardedLM(lm.DecoderLM):
             x[:, :nv] += patches.to(torch.bfloat16) @ self.vis_proj
         return x
 
-    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
-                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``lm.loss_fn`` of this rank's rows (aux weight 0.01)."""
-        x = self._embed(tokens, patches)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x, aux = lm.run_blocks(self, x, positions)
-        h = L.apply_norm(self.cfg.norm, x, self.ln_f)
+    def _cross_entropy(self, h: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+        """``lm.cross_entropy`` of the logits ``h @ head``, split by
+        vocabulary over the model group where it divides."""
         g = self.vocab_group
         if g is None:
-            loss = lm.cross_entropy(h @ self.head(), labels)
-        else:
-            loss = _vocab_cross_entropy(api.column_input(h, g) @ self.head(),
-                                        labels, self.vocab_lo, g)
-        return loss + AUX_WEIGHT * aux
+            return lm.cross_entropy(h @ self.head(), labels)
+        return _vocab_cross_entropy(api.column_input(h, g) @ self.head(),
+                                    labels, self.vocab_lo, g)
 
     # -- the state as one rank holds it --
 
@@ -560,21 +743,126 @@ class ShardedLM(lm.DecoderLM):
         return t / math.prod(dist.get_world_size(g) for g in self.place.batch)
 
 
+class ShardedLM(_Sharded, lm.DecoderLM):
+    """One rank's share of a decoder-only LM (dense, MoE, SSM or hybrid):
+    ``lm.DecoderLM``'s parameters under their names and order;
+    ``forward(batch)`` is ``lm.loss_fn`` of this rank's rows."""
+
+    def __init__(self, cfg, mesh: Mesh, device):
+        if cfg.family not in FAMILIES or cfg.family == "encdec":
+            raise ValueError(f"{cfg.name} ({cfg.family}) is not a "
+                             "decoder-only LM of the sharded step")
+        super().__init__(cfg, "meta")
+        self.blocks = nn.ModuleList(Block(cfg, mx, f) for mx, f in self.kinds)
+        self._shard(mesh, device)
+
+    def layers(self) -> List[nn.Module]:
+        return list(self.blocks)
+
+    def _plan(self, place: Place) -> None:
+        cfg, m, r = self.cfg, place.m, place.at["model"]
+        for i, blk in enumerate(self.blocks):
+            pre = f"blocks.{i}."
+            if blk.mixer == "attn":
+                self._plan_attention(blk.attn, pre + "attn.", place)
+            else:
+                self._plan_mamba(blk.mamba, pre + "mamba.", place)
+            if blk.ffn == "mlp":
+                self._plan_mlp(blk.mlp, pre + "mlp.")
+            elif blk.ffn == "moe":
+                E, Fs = cfg.n_experts, cfg.moe_d_ff * cfg.n_shared_experts
+                if m > 1 and (E % m or Fs % m):
+                    raise ValueError(f"{cfg.name}: {E} experts and shared "
+                                     f"width {Fs} must divide over {m}")
+                blk.first_expert = r * E // m
+                blk.expert_group = place.model
+                blk.batch_groups = place.batch
+                if pre + "moe.router" in self.by_hand() and place.batch:
+                    blk.router_gather = (0, place.group.get("data"),
+                                         place.group.get("pod"))
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``lm.loss_fn`` of this rank's rows (aux weight 0.01)."""
+        tokens = batch["tokens"]
+        x = self._embed(tokens, batch.get("patches"))
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, aux = lm.run_blocks(self, x, positions)
+        h = L.apply_norm(self.cfg.norm, x, self.ln_f)
+        return self._cross_entropy(h, batch["labels"]) + AUX_WEIGHT * aux
+
+
+class ShardedEncDec(_Sharded, seq2seq.EncDecLM):
+    """One rank's share of an encoder-decoder: ``seq2seq.EncDecLM``'s
+    parameters under their names and order; ``forward(batch)`` is
+    ``seq2seq.loss_fn`` of this rank's rows (``frames``, ``tokens``,
+    ``labels``), each layer of both stacks checkpointed with
+    ``cfg.remat``."""
+
+    def __init__(self, cfg, mesh: Mesh, device):
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name} ({cfg.family}) is not an "
+                             "encoder-decoder")
+        super().__init__(cfg, "meta")
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg)
+                                        for _ in range(cfg.enc_layers))
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg)
+                                        for _ in range(cfg.dec_layers))
+        self._shard(mesh, device)
+
+    def head(self) -> torch.Tensor:
+        return self.lm_head
+
+    def layers(self) -> List[nn.Module]:
+        return list(self.enc_blocks) + list(self.dec_blocks)
+
+    def _plan(self, place: Place) -> None:
+        for stack, blocks in (("enc_blocks", self.enc_blocks),
+                              ("dec_blocks", self.dec_blocks)):
+            for i, blk in enumerate(blocks):
+                pre = f"{stack}.{i}."
+                self._plan_attention(blk.attn, pre + "attn.", place)
+                if stack == "dec_blocks":
+                    self._plan_attention(blk.xattn, pre + "xattn.", place)
+                self._plan_mlp(blk.mlp, pre + "mlp.")
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+
+        def layer(blk, *args):
+            if cfg.remat:
+                return checkpoint(blk, *args, use_reentrant=False)
+            return blk(*args)
+        x = batch["frames"].to(torch.bfloat16)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for blk in self.enc_blocks:
+            x = layer(blk, x, positions)
+        enc_x = L.apply_norm(cfg.norm, x, self.enc_ln_f)
+        tokens = batch["tokens"]
+        x = self._embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for blk in self.dec_blocks:
+            x = layer(blk, x, enc_x, positions)
+        h = L.apply_norm(cfg.norm, x, self.ln_f)
+        return self._cross_entropy(h, batch["labels"])
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     return t.to_local() if isinstance(t, DTensor) else t
 
 
 def build(cfg, mesh: Mesh, device=None,
-          state: Optional[Dict[str, torch.Tensor]] = None) -> ShardedLM:
-    """This rank's :class:`ShardedLM` of ``cfg`` on ``mesh`` (``device``:
-    None = CUDA), its parameters requiring grad and sharded by
-    ``fully_shard`` (one unit a layer, then the root); loaded from
-    ``state`` (this rank's :func:`shard_state`) if given, else left
-    uninitialised (the dry run's fake tensors)."""
+          state: Optional[Dict[str, torch.Tensor]] = None) -> _Sharded:
+    """This rank's :class:`ShardedLM` or :class:`ShardedEncDec` of
+    ``cfg`` on ``mesh`` (``device``: None = CUDA), its parameters
+    requiring grad and sharded by ``fully_shard`` (one unit a layer,
+    then the root); loaded from ``state`` (this rank's
+    :func:`shard_state`) if given, else left uninitialised (the dry
+    run's fake tensors)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
-    model = ShardedLM(cfg, mesh, resolve_device(device))
+    cls = ShardedEncDec if cfg.family == "encdec" else ShardedLM
+    model = cls(cfg, mesh, resolve_device(device))
     model.requires_grad_(True)
     names = model._names
     ignored = {model.get_parameter(n)
@@ -584,8 +872,8 @@ def build(cfg, mesh: Mesh, device=None,
         spec = model.spec[names[id(p)]]
         return Shard(next(i for i, e in enumerate(spec) if "data" in _axes(e)))
     dm = model.place.fsdp_mesh()
-    for blk in model.blocks:
-        fully_shard(blk, mesh=dm, shard_placement_fn=placement,
+    for layer in model.layers():
+        fully_shard(layer, mesh=dm, shard_placement_fn=placement,
                     ignored_params=ignored)
     fully_shard(model, mesh=dm, shard_placement_fn=placement,
                 ignored_params=ignored)
@@ -601,15 +889,15 @@ def build(cfg, mesh: Mesh, device=None,
 
 def make_step(opt_cfg: adamw.OptConfig):
     """``train_step(model, opt_state, batch) -> {"loss", "lr",
-    "grad_norm"}`` of a :class:`ShardedLM`: the loss of this rank's rows
-    (``batch``: :func:`rank_rows`), its backward (FSDP's gathers and
+    "grad_norm"}`` of a model from :func:`build`: the loss of this rank's
+    rows (``batch``: :func:`rank_rows`), its backward (FSDP's gathers and
     reduce-scatters, the model group's collectives), the gradients'
-    shards (:meth:`ShardedLM.local_grads`) and their whole norm, and one
-    AdamW update of this rank's shards and ``opt_state`` (``adamw.init``
-    of ``model.local_params()``) in place. The loss is averaged over the
+    shards (``local_grads``) and their whole norm, and one AdamW update
+    of this rank's shards and ``opt_state`` (``adamw.init`` of
+    ``model.local_params()``) in place. The loss is averaged over the
     batch ranks."""
-    def train_step(model: ShardedLM, opt_state, batch):
-        loss = model(batch["tokens"], batch["labels"], batch.get("patches"))
+    def train_step(model: _Sharded, opt_state, batch):
+        loss = model(batch)
         loss.backward()
         grads = model.local_grads()
         gnorm = model.grad_norm(grads)

@@ -13,18 +13,23 @@ against the reference's.
   them: the reference's ``NamedSharding`` patched to return its spec, a
   described mesh, a stacked leaf's spec without its leading None once a
   layer, a cache leaf on its trailing dimensions.
-- At qwen2.5-3b's and deepseek-moe-16b's ``smoke_model()`` on a (2, 2)
-  ("data", "model") mesh and a batch of 4 x 64, the port's
-  ``argument_bytes`` and ``alias_bytes`` (the sharded step's local
-  tensors, under a fake group of 4 ranks) equal XLA's memory analysis
-  of the reference's ``build_lowered`` exactly. The reference runs in a
-  subprocess with 512 forced host devices (``repro.launch.dryrun`` sets
-  them as it is imported), which also reports its production meshes.
+- At the ``smoke_model()`` of qwen2.5-3b, deepseek-moe-16b, mamba2-2.7b,
+  jamba-v0.1-52b and seamless-m4t-medium on a (2, 2) ("data", "model")
+  mesh and a batch of 4 x 64, the port's ``argument_bytes`` and
+  ``alias_bytes`` (the sharded step's local tensors, under a fake group
+  of 4 ranks) equal XLA's memory analysis of the reference's
+  ``build_lowered`` exactly. The reference runs in a subprocess with 512
+  forced host devices (``repro.launch.dryrun`` sets them as it is
+  imported), which also reports its production meshes.
 - One production cell (qwen2.5-3b x train_4k x single_pod_16x16, ~30 s
   on a CPU) through the CLI under the fake group of 256 ranks: its
   JSON holds the reference's keys, and ``workload_demand`` of the port
-  and ``from_dryrun`` of both packages read it. An arch or shape out of
-  the sharded step's scope prints a SKIP line and writes nothing.
+  and ``from_dryrun`` of both packages read it. A shape out of the
+  sharded step's scope prints a SKIP line and writes nothing.
+- The SSM, hybrid and encoder-decoder archs' production cells at
+  ``train_4k`` through the CLI (three processes at once, 25-45 s each
+  on a CPU): each writes its file, which ``from_dryrun`` of both
+  packages reads; ``decode_32k`` still SKIPs.
 """
 import functools
 import json
@@ -50,7 +55,8 @@ from repro_torch.parallel import api as PAPI
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SCOPE = ["qwen2.5-3b", "gemma-7b", "stablelm-12b", "qwen1.5-32b",
-         "internvl2-2b", "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"]
+         "internvl2-2b", "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
+         "mamba2-2.7b", "jamba-v0.1-52b", "seamless-m4t-medium"]
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
 # the parser test's lines (test_system.py) and one line of each other kind
@@ -95,7 +101,10 @@ out["meshes"] = [[list(m.axis_names), list(m.devices.shape)] for m in
                   D.make_production_mesh(multi_pod=True))]
 print(json.dumps(out))
 """
-SMOKE_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
+SMOKE_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b", "mamba2-2.7b",
+               "jamba-v0.1-52b", "seamless-m4t-medium")
+# the families that joined the sharded step after the dense and MoE LMs
+FAMILY_ARCHS = ("mamba2-2.7b", "jamba-v0.1-52b", "seamless-m4t-medium")
 
 
 def described(names, shape):
@@ -293,8 +302,11 @@ def test_argument_and_alias_bytes_equal_xla(arch, reference_dryrun,
     state = _local_bytes(params, pspec, mesh) + sum(
         _local_bytes(opt[k], ospec[k], mesh) for k in ("m", "v")) + 4
     assert mem["alias_bytes"] == state
-    # tokens and labels, int32, two rows of 64 a data shard
-    assert mem["argument_bytes"] - state == 2 * (4 // 2) * 64 * 4
+    # tokens and labels, int32, two rows of 64 a data shard; an
+    # encoder-decoder's frames, bf16 rows of d_model
+    frames = (4 // 2) * 64 * cfg.d_model * 2 if cfg.family == "encdec" \
+        else 0
+    assert mem["argument_bytes"] - state == 2 * (4 // 2) * 64 * 4 + frames
     assert rec["collectives"] and rec["flops_per_dev"] > 0
     assert mem["peak_live_bytes"] > mem["argument_bytes"]
 
@@ -363,8 +375,8 @@ def test_cli_production_cell_feeds_workload_demand(tmp_path):
             (want.w_same_cube, want.w_ring, want.w_uniform)
     assert (want.w_same_cube, want.w_ring) != (0.0, 0.0)
     skip = tmp_path / "skip"
-    for argv, line in [(["--arch", "mamba2-2.7b"],
-                        "SKIP mamba2-2.7b x train_4k"),
+    for argv, line in [(["--arch", "mamba2-2.7b", "--shape", "long_500k"],
+                        "SKIP mamba2-2.7b x long_500k"),
                        (["--arch", "qwen2.5-3b", "--shape", "decode_32k"],
                         "SKIP qwen2.5-3b x decode_32k")]:
         out = subprocess.run(
@@ -374,6 +386,48 @@ def test_cli_production_cell_feeds_workload_demand(tmp_path):
         assert out.returncode == 0 and out.stdout.startswith(line), \
             out.stdout + out.stderr[-2000:]
         assert os.listdir(skip) == []
+
+
+def test_cli_runs_the_other_families_at_train_4k(tmp_path):
+    """mamba2-2.7b, jamba-v0.1-52b and seamless-m4t-medium at train_4k on
+    single_pod_16x16, each CLI in a process of its own, all at once: no
+    SKIP, the reference's file written, and ``from_dryrun`` of both
+    packages reads it; at decode_32k each still SKIPs and writes
+    nothing."""
+    from repro.core import demand as JD
+    from repro_torch.core import demand as PDM
+
+    def cli(arch, shape, outdir):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--device", "cpu",
+             "--outdir", str(outdir)], env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    procs = {a: cli(a, "train_4k", tmp_path) for a in FAMILY_ARCHS}
+    skip = tmp_path / "skip"
+    for arch, p in procs.items():
+        out = p.communicate(timeout=600)[0]
+        assert p.returncode == 0, out[-4000:]
+        assert out.startswith(f"=== {arch} x train_4k x single_pod_16x16")
+        assert "SKIP" not in out and "FAIL" not in out, out[-4000:]
+        rec = json.loads((tmp_path / f"{arch}__train_4k__single_pod_16x16"
+                          ".json").read_text())
+        assert rec["chips"] == 256 and rec["collectives"]
+        spec = (4, 4, 8)
+        got = [f(spec, arch, "train_4k", dryrun_dir=str(tmp_path))
+               for f in (PDM.from_dryrun, JD.from_dryrun)]
+        want = PDM.from_mix(PDM.Pod(spec), {
+            k: v["wire_bytes"] for k, v in rec["collectives"].items()})
+        for d in got:
+            assert (d.w_same_cube, d.w_ring, d.w_uniform) == \
+                (want.w_same_cube, want.w_ring, want.w_uniform)
+        p = cli(arch, "decode_32k", skip)
+        out = p.communicate(timeout=120)[0]
+        assert p.returncode == 0 and out.startswith(
+            f"SKIP {arch} x decode_32k"), out[-2000:]
+    assert sorted(f.name for f in tmp_path.glob("*.json")) == sorted(
+        f"{a}__train_4k__single_pod_16x16.json" for a in FAMILY_ARCHS)
+    assert not skip.exists() or os.listdir(skip) == []
 
 
 def test_dryrun_needs_cuda_by_default():

@@ -6,12 +6,14 @@ reference's step sharded on the same mesh by XLA.
 The ranks run in processes spawned by ``torch_dp_workers.run`` (a
 ``file://`` rendezvous under ``tmp_path``, killed after a timeout), one
 torch thread each, as is the one-process run here. The cases
-(``torch_spmd_workers.CASES``) are the smoke configs of the seven archs
-the step covers, two of them reshaped so that every branch a production
-cell takes runs: q heads that do not divide over "model" (qwen1.5-32b's
-40 over 16, here 5 over 2) and a vocabulary that does not divide
-(internvl2-2b's 92553, here 511, beside its smoke vocabulary of 512,
-where patches meet the vocab-parallel embedding). Each starts from the
+(``torch_spmd_workers.LM_CASES``) are the smoke configs of the seven
+dense and MoE archs, two of them reshaped so that every branch a
+production cell takes runs: q heads that do not divide over "model"
+(qwen1.5-32b's 40 over 16, here 5 over 2) and a vocabulary that does not
+divide (internvl2-2b's 92553, here 511, beside its smoke vocabulary of
+512, where patches meet the vocab-parallel embedding). The SSM, hybrid
+and encoder-decoder families run the same checks (the ``check_*``
+functions here) in ``test_torch_spmd_families.py``. Each starts from the
 reference's seed-0 weights carried over by ``convert``; batches from
 ``SyntheticLM`` (B 4, S 32) with the launcher's patches, 3 steps at lr
 1e-3 (``torch_spmd_workers``). The one process runs
@@ -61,6 +63,7 @@ import torch
 import test_torch_dp as TD
 import test_torch_train_archs as TA
 import test_torch_train_families as TF
+import test_torch_train_seq2seq as TS2
 import torch_dp_workers as DW
 import torch_parity as TP
 import torch_spmd_workers as W
@@ -76,7 +79,8 @@ REFERENCE_TIMEOUT = 600
 TESTS = os.path.dirname(__file__)
 SRC = os.path.join(TESTS, "..", "src")
 # each case's arch's bound (module docstring)
-PARAM_REL = {**TD.PARAM_REL, **TA.PARAM_REL, **TF.PARAM_REL}
+PARAM_REL = {**TD.PARAM_REL, **TA.PARAM_REL, **TF.PARAM_REL,
+             "seamless-m4t-medium": TS2.PARAM_REL}
 REFERENCE = """
 import dataclasses, os, sys
 import jax, jax.numpy as jnp, numpy as np, torch
@@ -163,26 +167,37 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The directory where the reference subprocess left each case's
-    seed-0 weights (``<case>.init.pt``) and its losses and parameters
-    after 3 sharded steps (``<case>.ref.pt``), under the port's names."""
+def run_reference(tmp_path_factory, cases) -> str:
+    """The directory where the reference subprocess left each of
+    ``cases``' seed-0 weights (``<case>.init.pt``) and its losses and
+    parameters after 3 sharded steps (``<case>.ref.pt``), under the
+    port's names."""
     tmp = tmp_path_factory.mktemp("spmd_reference")
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.pathsep.join([SRC, TESTS] + sys.path))
     out = subprocess.run([sys.executable, "-c", REFERENCE, str(tmp),
-                          *W.CASES], env=env, capture_output=True,
+                          *cases], env=env, capture_output=True,
                          text=True, timeout=REFERENCE_TIMEOUT)
     assert out.returncode == 0, out.stderr[-4000:]
     return str(tmp)
 
 
+def run_four_ranks(tmp_path_factory, reference, cases):
+    """Each rank's results of ``cases`` (``torch_spmd_workers.world``)."""
+    tmp = tmp_path_factory.mktemp("spmd4")
+    return DW.run(W.world, 4, tmp, MESH, reference, tuple(cases),
+                  timeout=SPAWN_TIMEOUT)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return run_reference(tmp_path_factory, W.LM_CASES)
+
+
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory, reference):
-    tmp = tmp_path_factory.mktemp("spmd4")
-    return DW.run(W.world, 4, tmp, MESH, reference, timeout=SPAWN_TIMEOUT)
+    return run_four_ranks(tmp_path_factory, reference, W.LM_CASES)
 
 
 def _first_routing_difference(want, ranks):
@@ -247,8 +262,7 @@ def _routing_checked(case, ranks, want):
     return [r["followed"] for r in ranks], first
 
 
-@pytest.mark.parametrize("case", list(W.CASES))
-def test_four_ranks_match_one_process(case, four_ranks, reference):
+def check_one_process(case, four_ranks, reference):
     """An MoE's one process and ranks both choose the reference's experts
     in the runs compared (:func:`_routing_checked`)."""
     ranks = [r[case] for r in four_ranks]
@@ -267,8 +281,7 @@ def test_four_ranks_match_one_process(case, four_ranks, reference):
     assert param_rel <= PARAM_REL[W.CASES[case][0]], param_rel
 
 
-@pytest.mark.parametrize("case", list(W.CASES))
-def test_four_ranks_match_the_reference(case, four_ranks, reference):
+def check_reference(case, four_ranks, reference):
     """The reference's step, jitted with its specs on a (2, 2) mesh of
     forced host devices and run 3 times from the same weights on the
     same batches; an MoE's ranks choosing its experts
@@ -297,10 +310,12 @@ def _as_model(model, params):
     return out
 
 
-def test_world_one_is_todays_step(tmp_path):
+def check_world_one(tmp_path, archs):
     """One gloo rank on (1, 1): the losses and parameters of today's
-    ``make_step`` bit for bit, for both archs; no collective issued."""
-    (res,) = DW.run(W.world_one, 1, tmp_path, timeout=SPAWN_TIMEOUT)
+    ``make_step`` bit for bit, for each of ``archs``; no collective
+    run, no weight read through a view."""
+    (res,) = DW.run(W.world_one, 1, tmp_path, tuple(archs),
+                    timeout=SPAWN_TIMEOUT)
     for arch, want in res["today"].items():
         got = res["sharded"][arch]
         assert all(torch.equal(a, b) for a, b in zip(got["losses"],
@@ -308,11 +323,18 @@ def test_world_one_is_todays_step(tmp_path):
         for n, p in want["params"].items():
             assert torch.equal(got["params"][n], p), (arch, n)
         assert got["collectives"] == [[]] * W.STEPS
+        assert not any(got["views"].values()), (arch, got["views"])
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1), (2, 2, 2)])
-@pytest.mark.parametrize("arch", W.ARCHS)
-def test_shard_state_then_gather_is_lossless(arch, shape):
+def test_world_one_is_todays_step(tmp_path):
+    """Both archs (``torch_spmd_workers.ARCHS``)."""
+    check_world_one(tmp_path, W.ARCHS)
+
+
+SHAPES = [(2, 2), (1, 4), (4, 1), (2, 2, 2)]
+
+
+def check_shard_gather(arch, shape):
     names = W.NAMES if len(shape) == 2 else ("pod",) + W.NAMES
     mesh = api.Mesh(names, shape)
     model = PM.init_params(W.smoke(arch), 0, "cpu")
@@ -326,8 +348,13 @@ def test_shard_state_then_gather_is_lossless(arch, shape):
         assert torch.equal(t, model.get_parameter(n)), n
 
 
-@pytest.mark.parametrize("arch", list(W.CASES))
-def test_real_collectives_equal_the_fake_trace(arch, four_ranks):
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_shard_state_then_gather_is_lossless(arch, shape):
+    check_shard_gather(arch, shape)
+
+
+def check_fake_trace(arch, four_ranks):
     """Every rank's log of each step, and the fake rank 0's of the first,
     are one sequence: the same kinds, result bytes and group sizes."""
     import torch.distributed as dist
@@ -340,3 +367,18 @@ def test_real_collectives_equal_the_fake_trace(arch, four_ranks):
     assert fake["log"] == logs[0][0]
     kinds = {k for k, _, _ in fake["log"]}
     assert kinds == {"all-gather", "all-reduce", "reduce-scatter"}
+
+
+@pytest.mark.parametrize("case", list(W.LM_CASES))
+def test_four_ranks_match_one_process(case, four_ranks, reference):
+    check_one_process(case, four_ranks, reference)
+
+
+@pytest.mark.parametrize("case", list(W.LM_CASES))
+def test_four_ranks_match_the_reference(case, four_ranks, reference):
+    check_reference(case, four_ranks, reference)
+
+
+@pytest.mark.parametrize("arch", list(W.LM_CASES))
+def test_real_collectives_equal_the_fake_trace(arch, four_ranks):
+    check_fake_trace(arch, four_ranks)

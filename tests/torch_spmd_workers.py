@@ -1,4 +1,5 @@
-"""The processes of ``test_torch_spmd.py`` (no tests here): each function
+"""The processes of ``test_torch_spmd.py`` and ``test_torch_spmd_families.py``
+(no tests here): each function
 runs in a rank started by ``torch_dp_workers.run`` (gloo, a ``file://``
 rendezvous) or in the test process itself with no group, and returns
 what it found. Imports only torch and the port."""
@@ -20,10 +21,12 @@ from repro_torch.train import loop as PT
 B, S, STEPS = 4, 32, 3
 OPT = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
+# the SSM, hybrid and encoder-decoder families' archs
+FAMILY_ARCHS = ("mamba2-2.7b", "jamba-v0.1-52b", "seamless-m4t-medium")
 NAMES = ("data", "model")
 # each case: (arch, changes to its smoke config), shaped so that on the
 # (2, 2) mesh every branch of the sharded step that a production cell of
-# the seven archs takes runs somewhere
+# the ten archs takes runs somewhere
 CASES = {
     # GQA (4 q heads over 2 kv heads), q/k/v biases, a tied head on the
     # vocab-parallel embedding
@@ -44,7 +47,24 @@ CASES = {
     "internvl2-2b-v511": ("internvl2-2b", {"vocab": 511}),
     # a LayerNorm MoE without shared experts
     "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {}),
+    # the Mamba mixer over "model" (16 SSM heads, 8 a rank; B and C of
+    # its one group on both), no FFN, a tied head on the vocab-parallel
+    # embedding
+    "mamba2-2.7b": ("mamba2-2.7b", {}),
+    # one super-block of 8 layers: attention at index 4, Mamba elsewhere,
+    # MoE on the odd sub-layers, remat over the whole super-block
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
+    # the encoder-decoder: non-causal encoder and causal decoder self
+    # attention and cross attention, heads over "model", GELU MLPs,
+    # LayerNorms, frames split like tokens
+    "seamless-m4t-medium": ("seamless-m4t-medium", {}),
+    # its vocabulary that does not divide (256206 at full width; 511
+    # here): the embedding and the untied head replicated over "model"
+    "seamless-m4t-medium-v511": ("seamless-m4t-medium", {"vocab": 511}),
 }
+# the cases of the dense and MoE LM archs, and of the other families
+LM_CASES = tuple(c for c in CASES if CASES[c][0] not in FAMILY_ARCHS)
+FAMILY_CASES = tuple(c for c in CASES if CASES[c][0] in FAMILY_ARCHS)
 
 
 def smoke(case: str, registry=preg):
@@ -140,9 +160,11 @@ def sharded(rank, world, case: str, shape, init_dir=None, follow=False):
     """``STEPS`` steps of ``spmd.make_step`` on a mesh of ``shape`` over
     the group's ranks, from the whole model of :func:`initial` cut by
     ``shard_state``: losses, norms, routing calls, this rank's shards
-    of the parameters, and the collectives of each step
-    (``spmd.Recorder``). With ``follow`` its routing call k chooses the
-    reference's experts of call k for this rank's batch shard."""
+    of the parameters, the collectives of each step
+    (``spmd.Recorder``), and the names of the weights each module reads
+    through a view (under "views", by module name). With ``follow`` its
+    routing call k chooses the reference's experts of call k for this
+    rank's batch shard."""
     cfg = smoke(case)
     mesh = make_mesh(NAMES, shape)
     model = spmd.build(cfg, mesh, "cpu", spmd.shard_state(
@@ -168,6 +190,8 @@ def sharded(rank, world, case: str, shape, init_dir=None, follow=False):
         PL.moe_route = orig
     return {"losses": losses, "norms": norms, "routes": log,
             "collectives": logs, "at": model.place.at,
+            "views": {n: sorted(m.views) for n, m in model.named_modules()
+                      if isinstance(m, spmd._Viewed)},
             "params": {n: p.detach().clone()
                        for n, p in model.local_params().items()}}
 
@@ -184,12 +208,12 @@ def today(arch: str):
         n: p.detach().clone() for n, p in model.named_parameters()}}
 
 
-def world(rank, world_size, shape, init_dir):
-    """Every case, sharded on ``shape`` from the weights in ``init_dir``;
-    an MoE's again choosing the reference's experts (under
+def world(rank, world_size, shape, init_dir, cases=LM_CASES):
+    """Each of ``cases``, sharded on ``shape`` from the weights in
+    ``init_dir``; an MoE's again choosing the reference's experts (under
     "followed")."""
     out = {}
-    for c in CASES:
+    for c in cases:
         out[c] = sharded(rank, world_size, c, shape, init_dir)
         if smoke(c).n_experts:
             out[c]["followed"] = sharded(rank, world_size, c, shape,
@@ -197,9 +221,9 @@ def world(rank, world_size, shape, init_dir):
     return out
 
 
-def world_one(rank, world_size):
-    """Both archs sharded on (1, 1), beside today's step in the same
-    process (its result under "today")."""
+def world_one(rank, world_size, archs=ARCHS):
+    """Each of ``archs`` sharded on (1, 1), beside today's step in the
+    same process (its result under "today")."""
     return {"sharded": {a: sharded(rank, world_size, a, (1, 1))
-                        for a in ARCHS},
-            "today": {a: today(a) for a in ARCHS}}
+                        for a in archs},
+            "today": {a: today(a) for a in archs}}
