@@ -41,7 +41,12 @@ collectives and peak held to the dry run's fake run of the same step,
 then deepseek-moe-16b's cut, mamba2-2.7b and seamless-m4t-medium whole
 through it, each bit for bit with its own training run; jamba's sharded
 step is held on the CPU only, its cut being too large for one card
-with AdamW) and the four torch examples
+with AdamW; the serving dry run: qwen2.5-3b's prefill_32k and
+decode_32k cells on fake CUDA tensors, equal to the CPU's, and the
+sharded prefill and decode of qwen2.5-3b whole and deepseek-moe-16b's
+cut on one NCCL rank, bit for bit with the plain ones, the flash
+kernel's custom op timed against its bare wrapper) and the four torch
+examples
 (``examples/torch_*.py`` at their counterparts' settings, quickstart's
 pod cut to 4^3, the routes and
 the fault walkthrough's simulations held to the CPU) -- checks that the
@@ -210,6 +215,29 @@ DRYRUN_WORLD1_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b",
                        "seamless-m4t-medium")
 DRYRUN_PEAK_REL = 0.15
 DRYRUN_TIMEOUT_S = 600
+# the serving dry run (launch/dryrun.py at prefill_32k and decode_32k):
+# DRYRUN_SERVE_ARCH's production cells at DRYRUN_SERVE_SHAPES on
+# single_pod_16x16, on fake CUDA tensors and on fake CPU tensors, each in
+# a process of its own; and the sharded prefill and decode
+# (ShardedLM.prefill / decode_step) on a (1, 1) mesh of one NCCL rank for
+# DRYRUN_SERVE_WORLD1 (qwen2.5-3b whole with the serve prompts,
+# deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut with the first
+# FAMILY_REQUESTS of them): each prompt prefilled alone, then
+# DRYRUN_SERVE_STEPS greedy decode steps, bit for bit with lm.prefill /
+# lm.decode_step on the same weights
+DRYRUN_SERVE_ARCH = "qwen2.5-3b"
+DRYRUN_SERVE_SHAPES = ("prefill_32k", "decode_32k")
+DRYRUN_SERVE_WORLD1 = ("qwen2.5-3b", "deepseek-moe-16b")
+DRYRUN_SERVE_STEPS = 3
+# a dry-run record's figures that the card's fake run must equal the CPU's
+DRYRUN_RECORD_KEYS = ("flops_per_dev", "bytes_per_dev", "collectives",
+                      "wire_bytes_per_dev",
+                      "collective_operand_bytes_per_dev", "memory",
+                      "model_flops", "useful_flop_ratio", "terms",
+                      "flash_launches")
+# calls a timing of the flash op's dispatch makes, at qwen2.5-3b's heads
+# and a 128-token prompt (the kernel's device time is below the host's)
+FLASH_DISPATCH_CALLS, FLASH_DISPATCH_S = 200, 128
 # one MoE layer's output, CUDA against the CPU (tests/test_torch_moe.py's
 # BF16_LAYER: of the row's largest |y|)
 MOE_LAYER_ROW_REL = 2e-2
@@ -2829,6 +2857,197 @@ def phase_dryrun(fa, get_config, train_losses, family_losses, dev="cuda"):
     return launches
 
 
+def flash_dispatch(fa, ops, dev="cuda"):
+    """Host ms a call of the flash kernel through the custom op
+    (``ops.flash_attention``) and through its ctypes wrapper called
+    directly (``flash_attention.flash_attention``), FLASH_DISPATCH_CALLS
+    calls back to back between two synchronisations, in the order op,
+    direct, direct, op; the difference is the op's dispatch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = _attn_inputs(g, 1, 16, 2, FLASH_DISPATCH_S, FLASH_DISPATCH_S,
+                           128, torch.bfloat16, model_layout=True)
+    calls = {"op": lambda: ops.flash_attention(q, k, v),
+             "direct": lambda: fa.flash_attention(q, k, v)}
+    check(torch.equal(calls["op"](), calls["direct"]()),
+          "the flash op and its wrapper differ")
+    for fn in calls.values():
+        for _ in range(10):
+            fn()
+    ms = {"op": [], "direct": []}
+    for name in ("op", "direct", "direct", "op"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(FLASH_DISPATCH_CALLS):
+            calls[name]()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t) / FLASH_DISPATCH_CALLS
+                        * 1e3)
+    out = {n: statistics.mean(v) for n, v in ms.items()}
+    return dict(op_ms=out["op"], direct_ms=out["direct"],
+                dispatch_ms=out["op"] - out["direct"], runs_ms=ms)
+
+
+def sharded_serve(fa, cfg, prompts, dev="cuda"):
+    """``cfg`` from seed 0 on the card, served twice on one NCCL rank: each
+    prompt prefilled alone into a cache DRYRUN_SERVE_STEPS longer, then
+    DRYRUN_SERVE_STEPS greedy decode steps; first through the sharded
+    ``ShardedLM.prefill`` / ``decode_step`` on a (1, 1) mesh
+    (``spmd.build`` from ``shard_state``), flash launches counted from
+    zero, then through ``lm.prefill`` / ``lm.decode_step`` on the same
+    weights, counted again. Returns each run's logits, tokens, caches,
+    launches and seconds."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import spmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = lm.init_params(cfg, 0, dev)
+    mesh = make_mesh(("data", "model"), (1, 1))
+    model = spmd.build(cfg, mesh, dev, spmd.shard_state(whole, mesh, 0))
+    sides = {"sharded": (lambda t, n: model.prefill({"tokens": t}, n),
+                         model.decode_step),
+             "plain": (lambda t, n: lm.prefill(whole, t, cache_len=n),
+                       lambda c, t, pos: lm.decode_step(whole, c, t, pos))}
+    runs = {}
+    for name, (prefill, decode) in sides.items():
+        logits, tokens, caches = [], [], []
+        torch.cuda.synchronize()
+        fa.launches = 0                     # this side's serving path
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for prompt in prompts:
+                tok = torch.as_tensor(prompt, device=dev)[None, :]
+                lg, cache = prefill(tok, len(prompt) + DRYRUN_SERVE_STEPS)
+                steps = [lg]
+                for i in range(DRYRUN_SERVE_STEPS):
+                    tok = lg.argmax(-1)
+                    tokens.append(tok)
+                    lg, cache = decode(cache, tok, len(prompt) + i)
+                    steps.append(lg)
+                logits.append(steps)
+                caches.append(cache)
+        torch.cuda.synchronize()
+        runs[name] = dict(logits=logits, tokens=tokens, caches=caches,
+                          launches=fa.launches,
+                          seconds=time.perf_counter() - t0)
+    del model, whole
+    return runs
+
+
+def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
+    """The serving dry run and the sharded serving step. Four processes
+    start together: DRYRUN_SERVE_ARCH's production cells at
+    DRYRUN_SERVE_SHAPES on ``single_pod_16x16`` (a fake group of 256
+    ranks), through the CLI on fake CUDA tensors and on fake CPU tensors;
+    each CUDA record must equal the CPU's figures (DRYRUN_RECORD_KEYS)
+    exactly, with no flash launch. Meanwhile the flash op's dispatch is
+    timed (:func:`flash_dispatch`), and on a (1, 1) mesh of one NCCL rank
+    each arch of DRYRUN_SERVE_WORLD1 is served through the sharded step
+    and the plain one (:func:`sharded_serve`): logits, greedy tokens and
+    caches bit for bit, and the same flash launches, one an attention
+    layer and prefill. Returns the sharded path's launches by arch."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_serve_"))
+    procs = {(shape, d): dryrun_process(
+        out / d, "--arch", DRYRUN_SERVE_ARCH, "--shape", shape, "--mesh",
+        "single", dev=d)
+        for shape in DRYRUN_SERVE_SHAPES for d in (dev, "cpu")}
+    dispatch = flash_dispatch(fa, ops, dev)
+    emit(phase="flash_op_dispatch", shape=[1, 16, 2, FLASH_DISPATCH_S,
+                                           FLASH_DISPATCH_S, 128],
+         calls=FLASH_DISPATCH_CALLS, **dispatch)
+    init_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{init_dir}/init",
+                            rank=0, world_size=1)
+    launches, t_arch = {}, [time.perf_counter()]
+    try:
+        for arch in DRYRUN_SERVE_WORLD1:
+            cfg = family_config(get_config, arch, TRAIN_FAMILY_LAYERS)
+            prompts = serve_prompts(cfg.vocab)
+            if arch != SERVE_ARCH:
+                prompts = prompts[:FAMILY_REQUESTS]
+            runs = sharded_serve(fa, cfg, prompts, dev)
+            t_arch.append(time.perf_counter())
+            sh, pl = runs["sharded"], runs["plain"]
+            logits_equal = all(torch.equal(a, b) for x, y in zip(
+                sh["logits"], pl["logits"]) for a, b in zip(x, y))
+            caches_equal = all(torch.equal(x[n], y[n]) for x, y in zip(
+                sh["caches"], pl["caches"]) for n in y)
+            tokens_equal = all(torch.equal(a, b) for a, b in zip(
+                sh["tokens"], pl["tokens"]))
+            want = attention_layers(cfg) * len(prompts)
+            launches[arch] = sh["launches"]
+            emit(phase="dryrun_serve_world1", arch=arch, backend="nccl",
+                 mesh=[1, 1], n_layers=cfg.n_layers,
+                 prompt_lens=[len(p) for p in prompts],
+                 decode_steps=DRYRUN_SERVE_STEPS,
+                 logits_equal=logits_equal, caches_equal=caches_equal,
+                 tokens_equal=tokens_equal,
+                 tokens=[int(t) for t in sh["tokens"]],
+                 flash_launches=sh["launches"],
+                 plain_flash_launches=pl["launches"], want_launches=want,
+                 sharded_s=sh["seconds"], plain_s=pl["seconds"],
+                 seconds=t_arch[-1] - t_arch[-2])
+            check(logits_equal and caches_equal and tokens_equal,
+                  f"{arch}: the sharded prefill and decode differ from "
+                  "lm.prefill / lm.decode_step")
+            check(sh["launches"] == pl["launches"] == want,
+                  f"{arch}: flash launches {sh['launches']} sharded, "
+                  f"{pl['launches']} plain, want {want}")
+            del runs, sh, pl
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(init_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    logs = {}
+    try:
+        for key, p in procs.items():
+            logs[key] = p.communicate(timeout=max(
+                DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wait_s = time.perf_counter() - t1
+    failed = {f"{s} {d}": logs.get((s, d), "")[-3000:]
+              for (s, d), p in procs.items() if p.returncode != 0}
+    check(not failed, f"serving dry-run processes failed: {failed}")
+    for shape in DRYRUN_SERVE_SHAPES:
+        name = f"{DRYRUN_SERVE_ARCH}__{shape}__single_pod_16x16.json"
+        rec, cpu = (json.loads((out / d / name).read_text())
+                    for d in (dev, "cpu"))
+        diff = [k for k in DRYRUN_RECORD_KEYS if rec[k] != cpu[k]]
+        emit(phase="dryrun_serve_cell", arch=DRYRUN_SERVE_ARCH, shape=shape,
+             mesh=rec["mesh"], chips=rec["chips"], kind=rec["kind"],
+             collectives={k: {"count": v["count"],
+                              "wire_bytes": v["wire_bytes"],
+                              "operand_bytes": v["operand_bytes"]}
+                          for k, v in rec["collectives"].items()},
+             wire_bytes_per_dev=rec["wire_bytes_per_dev"],
+             flops_per_dev=rec["flops_per_dev"],
+             bytes_per_dev=rec["bytes_per_dev"], memory=rec["memory"],
+             terms=rec["terms"], useful_flop_ratio=rec["useful_flop_ratio"],
+             flash_launches=rec["flash_launches"],
+             trace_s=rec["trace_s"], cpu_trace_s=cpu["trace_s"],
+             device=rec["device"], equal_to_cpu=not diff, differ=diff)
+        check(not diff, f"{shape}: the card's fake record differs from the "
+              f"CPU's in {diff}")
+        check(rec["flash_launches"] == 0 and rec["collectives"]
+              and rec["memory"]["peak_live_bytes"]
+              > rec["memory"]["argument_bytes"],
+              f"{shape}: an empty record or a flash launch")
+    shutil.rmtree(out, ignore_errors=True)
+    emit(phase="dryrun_serve_seconds", seconds=time.perf_counter() - t0,
+         world1_s=dict(zip(DRYRUN_SERVE_WORLD1, np.diff(t_arch).tolist())),
+         waited_for_processes_s=wait_s)
+    return launches
+
+
 def jsonable(x):
     """``x`` with numpy scalars and arrays, tuples and non-string keys
     made plain for ``json.dumps``."""
@@ -3262,6 +3481,7 @@ def main() -> int:
         fa, get_config, train_losses,
         {a: family_figures.get(a, {}).get("losses")
          for a in DRYRUN_WORLD1_ARCHS})
+    dryrun_serve_launches = phase_dryrun_serve(fa, ops, get_config)
 
     # ---- the torch examples, each counted from zero ------------------------
     example_launches = phase_examples(fa, mp, PT, route_pod, PipelineConfig)
@@ -3308,6 +3528,7 @@ def main() -> int:
         "launches_training_families": family_train_launches,
         "launches_parallel": parallel_launches,
         "launches_dryrun": dryrun_launches,
+        "launches_dryrun_serve": dryrun_serve_launches,
         "launches_remat_dots": remat_dots_launches,
         "launches_examples": {k: v["flash_attention"] for k, v in
                               example_launches.items()},

@@ -10,6 +10,16 @@ nothing is copied; the output takes the strides of ``q``. bf16 inputs
 run the tensor-core kernel, fed by TMA, which also needs 16-byte
 aligned bases and strides (:func:`check_inputs`); float32 inputs run the
 CUDA-core kernel.
+
+The kernel is bound to PyTorch as the custom op
+``repro_torch::flash_attention`` (:data:`OP`), which
+``kernels.ops.flash_attention`` calls: its CUDA part is
+:func:`flash_attention` (the ctypes launch, counted), its CPU part
+``ref.flash_attention_ref``, and its fake part an empty tensor of the
+kernel's output layout, so that ``FakeTensorMode`` traces attention
+(the dry run) without memory and without the plain version's score
+matrix. A flop formula (:func:`flops`: 4 hd a visible (q, k) pair) is
+registered with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
@@ -19,8 +29,9 @@ from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (64, 128, 160, 256)
@@ -146,3 +157,41 @@ def run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     return out
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """The (q, k) pairs one head of one sequence attends: with the
+    top-left causal mask row i sees min(i + 1, Skv) keys."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + max(Sq - Skv, 0) * Skv
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def OP(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+       causal: bool) -> torch.Tensor:
+    """The kernel as a custom op: on CUDA tensors :func:`flash_attention`
+    (counted); on CPU tensors the plain version; on fake tensors an
+    empty tensor laid out as the kernel's output."""
+    return flash_attention(q, k, v, causal)
+
+
+@OP.register_kernel("cpu")
+def _op_cpu(q, k, v, causal):
+    return ref.flash_attention_ref(q, k, v, causal)
+
+
+@OP.register_fake
+def _op_fake(q, k, v, causal):
+    return torch.empty_like(q)          # the kernel's output: q's strides
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+          **kwargs) -> int:
+    """4 hd flops a visible (q, k) pair of each head: q.k and P.V, a
+    multiply and an add each (``PERF.md``'s bound)."""
+    B, Hq, Sq, hd = q_shape
+    return 4 * B * Hq * hd * visible_pairs(Sq, k_shape[2], causal)

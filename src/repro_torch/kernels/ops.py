@@ -31,18 +31,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises under autograd when q, k or v requires grad, on every device,
     since the CUDA kernel's output has no ``grad_fn`` and would silently
     drop attention's gradient (training attention is
-    ``models.layers.blocked_attention``)."""
+    ``models.layers.blocked_attention``). Through the custom op
+    ``repro_torch::flash_attention``: the kernel on CUDA, the plain
+    version on the CPU, an empty output on fake tensors."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
             "flash_attention has no backward: call it under torch.no_grad()"
             " or inference_mode(); training attention is "
             "repro_torch.models.layers.blocked_attention")
-    if q.device.type == "cuda":
-        return _fa.flash_attention(q, k, v, causal)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal)
-    raise ValueError(f"flash_attention has no path for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention has no path for device "
+                         f"{q.device}")
+    return _fa.OP(q, k, v, causal)
 
 
 def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Dry run of the sharded training step on a fake process group: what one
-device of the production mesh computes, holds and sends.
+"""Dry run of the sharded training, prefill and decode steps on a fake
+process group: what one device of the production mesh computes, holds
+and sends.
 
 Counterpart of ``repro.launch.dryrun``. The reference lowers and
 compiles each (arch x shape x mesh) cell with XLA on a forced 512-device
@@ -7,9 +8,15 @@ host mesh and reads the HLO. Torch has no HLO: this runs the port's
 sharded step itself (``parallel.spmd``: FSDP over "data", HSDP over
 "pod", tensor and expert parallelism over "model") for one rank, rank 0,
 of a ``fake`` process group as large as the mesh (256 or 512 ranks),
-with every tensor a ``FakeTensor``: one ``train_4k`` step, forward,
-backward and AdamW, at the per-rank shapes. The model is built without
-weights and nothing is allocated; every collective returns at once.
+with every tensor a ``FakeTensor``, at the per-rank shapes: one
+``train_4k`` step (forward, backward and AdamW), or one sharded prefill
+(``prefill_32k``) or decode step (``decode_32k``, one token a row
+against a cache of ``seq_len`` positions) under ``torch.no_grad()``.
+The model is built without weights and nothing is allocated; every
+collective returns at once. Prefill attention reaches the flash kernel
+through its custom op, whose fake part returns an empty output: nothing
+launches, and the ``Meter`` counts the kernel's output, not the plain
+version's score matrix.
 
 What a cell records (the reference's JSON schema and file name,
 ``{arch}__{shape}__{mesh}.json``, so that ``core.demand.from_dryrun`` of
@@ -20,34 +27,44 @@ either package reads it):
   ``hlo_analysis.collective_stats_from_log``; ``wire_bytes_per_dev`` and
   ``collective_operand_bytes_per_dev`` their sums;
 - ``flops_per_dev`` by ``torch.utils.flop_counter``'s formulas (matrix
-  products, remat's recompute included), and ``bytes_per_dev``, the
-  bytes every aten op of the step reads and writes (views and
-  collectives left out): torch runs op by op, so this counts no fusion;
-- ``memory``: ``argument_bytes``, the rank's shards of the parameters,
-  the AdamW moments and step and its batch rows, and ``alias_bytes``
-  (the donated state: all but the batch), each summed from the local
-  tensors the step holds; ``peak_live_bytes``, the most bytes the
-  rank's live storages held at once over the step (:class:`Meter`, on
-  the fake tensors); ``fits_h100_80g`` (below 80e9 bytes);
-- ``params``, ``active_params``, ``model_flops`` (6 N D), the useful
-  share of the counted flops, and the three roofline ``terms`` at the
-  rates recorded under ``rates`` (:data:`RATES`): the card's bf16 peak
-  at its maximum clock and its memory rate (NVIDIA H100 80GB HBM3, 700
-  W, ``PERF.md``), and the modelled fabric's link rate
-  (``core.collectives``: 50e9 B/s a link) over the pod's 6 links a
-  chip.
+  products, remat's recompute included, the flash op at 4 hd a visible
+  (q, k) pair), and ``bytes_per_dev``, the bytes every aten op and the
+  flash op read and write (views and collectives left out): torch runs
+  op by op, so this counts no fusion;
+- ``memory``: ``argument_bytes``, the rank's shards of the parameters
+  and its batch rows, with the AdamW moments and step for training, and
+  for decode the token rows, the position (4 bytes) and the rank's
+  cache blocks; ``alias_bytes``, the donated arguments (training: all
+  but the batch; decode: the caches; prefill: none), each summed from
+  the local tensors the step holds; ``peak_live_bytes``, the most bytes
+  the rank's live storages held at once over the step (:class:`Meter`,
+  on the fake tensors); ``fits_h100_80g`` (below 80e9 bytes);
+- ``params``, ``active_params``, ``model_flops`` (6 N D for training, 2
+  N D for inference; D a decode step's rows), the useful share of the
+  counted flops, and the three roofline ``terms`` at the rates recorded
+  under ``rates`` (:data:`RATES`): the card's bf16 peak at its maximum
+  clock and its memory rate (NVIDIA H100 80GB HBM3, 700 W, ``PERF.md``),
+  and the modelled fabric's link rate (``core.collectives``: 50e9 B/s a
+  link) over the pod's 6 links a chip; ``flash_launches``, the kernel's
+  launches in the trace (none: its fake part runs).
 
 The step traces every layer, so nothing is extrapolated from shallower
 models (the reference's ``extrapolated`` is left out). The port's
 sharded step covers every family (dense, MoE, SSM, hybrid and
 encoder-decoder: all ten archs) at ``train_4k`` and at a custom
-training shape; a prefill or decode shape (``prefill_32k``,
-``decode_32k``, ``long_500k``) prints a SKIP line and writes nothing.
+training shape, and the dense and MoE families at ``prefill_32k`` and
+``decode_32k``. Another cell prints a SKIP line and writes nothing: a
+shape not in the arch's ``shapes`` the reference's line with the arch's
+notes; a serving cell of the SSM, hybrid and encoder-decoder families,
+and ``long_500k`` (its B = 1 sequence-over-"data" layout), "not in the
+port's sharded step yet". ``--shape all`` runs each arch's ``shapes``,
+as the reference's CLI does.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
-      --shape train_4k --mesh both --outdir dryrun_out
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --device cpu
+      --shape decode_32k --mesh single --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+      --shape all --mesh both --device cpu
 """
 from __future__ import annotations
 
@@ -64,9 +81,11 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
-from repro_torch.launch.specs import batch_specs, local_shape
+from repro_torch.launch.specs import batch_specs, decode_specs, \
+    local_shape
 from repro_torch.parallel.api import Mesh
 
 SHAPE = "train_4k"
@@ -82,13 +101,22 @@ LINKS_PER_CHIP = 6
 RATES = dict(peak_flops=PEAK_FLOPS, hbm_bytes_per_s=HBM_BYTES_PER_S,
              link_bytes_per_s=LINK_BYTES_PER_S, links_per_chip=LINKS_PER_CHIP)
 H100_BYTES = 80e9
+# the decode step's position: an int32 scalar argument in the reference
+POS_BYTES = 4
+# the ops whose bytes and outputs the Meter counts: aten's and the port's
+# custom ops (the flash kernel, ``repro_torch::flash_attention``)
+OP_NAMESPACES = ("aten", "repro_torch")
 
 
 def in_scope(cfg, shape: ShapeConfig) -> bool:
     """Whether the sharded step runs this cell: any family at a training
-    shape (``train_4k``, or one given by ``--batch``/``--seq``)."""
-    from repro_torch.parallel.spmd import FAMILIES
-    return cfg.family in FAMILIES and shape.kind == "train"
+    shape (``train_4k``, or one given by ``--batch``/``--seq``), the
+    dense and MoE families at a serving shape (``prefill_32k``,
+    ``decode_32k``) whose batch splits over the batch axes."""
+    from repro_torch.parallel.spmd import FAMILIES, SERVE_FAMILIES
+    if shape.kind == "train":
+        return cfg.family in FAMILIES
+    return cfg.family in SERVE_FAMILIES and shape.global_batch > 1
 
 
 class Meter(torch.utils._python_dispatch.TorchDispatchMode):
@@ -157,7 +185,7 @@ class Meter(torch.utils._python_dispatch.TorchDispatchMode):
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)
-        if func.namespace == "aten" and not func.is_view:
+        if func.namespace in OP_NAMESPACES and not func.is_view:
             for t in torch.utils._pytree.tree_leaves(out):
                 self._hold(t)
             flat = torch.utils._pytree.tree_leaves((args, kwargs, out))
@@ -170,50 +198,94 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _local(whole: Dict[str, torch.Tensor], spec: Dict[str, tuple],
+           mesh: Mesh, device) -> Dict[str, torch.Tensor]:
+    """Empty tensors of one device's blocks of ``whole`` under ``spec``."""
+    return {k: torch.empty(local_shape(v.shape, spec[k], mesh),
+                           dtype=v.dtype, device=device)
+            for k, v in whole.items()}
+
+
 def trace_step(cfg, shape: ShapeConfig, new_mesh: Callable[..., Mesh],
                device) -> Dict:
     """One sharded step of ``cfg`` at ``shape`` as rank 0 of a fake group
     of the mesh's size, under ``FakeTensorMode``: the collective log, the
-    flops, bytes, state and batch bytes and the peak (module docstring),
-    and the host seconds it took. ``new_mesh(device_type=...)`` builds
-    the mesh (``make_production_mesh`` or ``make_mesh``): called once
-    without a group for its size, then under the group for its
-    DeviceMesh."""
+    flops, bytes, argument and alias bytes and the peak (module
+    docstring), and the host seconds it took. ``new_mesh(device_type=
+    ...)`` builds the mesh (``make_production_mesh`` or ``make_mesh``):
+    called once without a group for its size, then under the group for
+    its DeviceMesh. By ``shape.kind``:
+    - train: ``spmd.make_step``; the arguments are the parameters, the
+      AdamW state and the batch rows, all but the batch donated;
+    - prefill: ``launch.steps.make_prefill_step`` on the sharded model;
+      the arguments are the parameters and the batch rows (tokens, a
+      vision arch's patches), nothing donated;
+    - decode: ``make_serve_step`` at the cache's last position; the
+      arguments are the parameters, the token rows (B, 1) int32, the
+      position (the reference's traced int32 scalar: 4 bytes; the port
+      passes a Python int, R6) and the rank's cache blocks
+      (``specs.decode_specs``), the caches donated, as the reference
+      donates them."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from repro_torch.launch import steps
     from repro_torch.optim import adamw
     from repro_torch.parallel import spmd
 
     t0 = time.perf_counter()
     device = torch.device(device)
+    launched = fa.launches
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=new_mesh().size)
     try:
         mesh = new_mesh(device_type=device.type)
         with FakeTensorMode():
             model = spmd.build(cfg, mesh, device)
-            params = model.local_params()
-            opt = adamw.init(params)
-            whole, spec = batch_specs(cfg, shape, mesh)
-            batch = {k: torch.empty(local_shape(v.shape, spec[k], mesh),
-                                    dtype=v.dtype, device=device)
-                     for k, v in whole.items()}
-            state = list(params.values()) + list(opt["m"].values()) + \
-                list(opt["v"].values()) + [opt["step"]]
-            rec, meter = spmd.Recorder(), Meter(state + list(batch.values()))
-            step = spmd.make_step(adamw.OptConfig())
+            params = list(model.local_params().values())
+            if shape.kind == "decode":
+                (token, _, caches), (tspec, _, cspec) = decode_specs(
+                    cfg, shape, mesh)
+                token = _local({"token": token}, {"token": tspec}, mesh,
+                               device)["token"]
+                caches = _local(caches, cspec, mesh, device)
+                donated = list(caches.values())
+                args = params + [token] + donated
+                extra = POS_BYTES
+
+                def run():
+                    steps.make_serve_step(cfg)(model, token,
+                                               shape.seq_len - 1, caches)
+            else:
+                whole, spec = batch_specs(cfg, shape, mesh)
+                batch = _local(whole, spec, mesh, device)
+                extra = 0
+                if shape.kind == "prefill":
+                    donated = []
+                    args = params + list(batch.values())
+
+                    def run():
+                        steps.make_prefill_step(cfg)(model, batch)
+                else:
+                    opt = adamw.init(model.local_params())
+                    donated = params + list(opt["m"].values()) + \
+                        list(opt["v"].values()) + [opt["step"]]
+                    args = donated + list(batch.values())
+
+                    def run():
+                        spmd.make_step(adamw.OptConfig())(model, opt, batch)
+            rec, meter = spmd.Recorder(), Meter(args)
             with meter, rec:
-                step(model, opt, batch)
+                run()
     finally:
         dist.destroy_process_group()
-    alias = _nbytes(state)
     return {"log": rec.log, "flops_per_dev": float(meter.flops),
             "bytes_per_dev": float(meter.bytes),
-            "alias_bytes": alias,
-            "argument_bytes": alias + _nbytes(batch.values()),
+            "alias_bytes": _nbytes(donated),
+            "argument_bytes": _nbytes(args) + extra,
             "peak_live_bytes": meter.peak,
+            "flash_launches": fa.launches - launched,
             "trace_s": time.perf_counter() - t0}
 
 
@@ -235,7 +307,8 @@ def run_cell(arch: str, shape: ShapeConfig, mesh_name: str,
            "axis_names": list(described.axis_names),
            "global_batch": shape.global_batch, "seq_len": shape.seq_len,
            "smoke": smoke, "device": str(device),
-           "trace_s": t["trace_s"], "flops_per_dev": t["flops_per_dev"],
+           "trace_s": t["trace_s"], "flash_launches": t["flash_launches"],
+           "flops_per_dev": t["flops_per_dev"],
            "bytes_per_dev": t["bytes_per_dev"], "collectives": coll,
            "wire_bytes_per_dev": sum(v["wire_bytes"] for v in coll.values()),
            "collective_operand_bytes_per_dev":
@@ -246,8 +319,10 @@ def run_cell(arch: str, shape: ShapeConfig, mesh_name: str,
                       "fits_h100_80g": t["peak_live_bytes"] < H100_BYTES},
            "params": cfg.param_count(),
            "active_params": cfg.active_param_count()}
-    rec["model_flops"] = H.model_flops(
-        rec["active_params"], shape.global_batch * shape.seq_len, shape.kind)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    rec["model_flops"] = H.model_flops(rec["active_params"], tokens,
+                                       shape.kind)
     total = rec["flops_per_dev"] * chips
     rec["useful_flop_ratio"] = rec["model_flops"] / total if total else 0.0
     rec["rates"] = RATES
@@ -272,10 +347,31 @@ def cells(args) -> List[Tuple[str, Callable[..., Mesh]]]:
             for k in keys]
 
 
+def _arch_shapes(archs: List[str], shape_name: str, custom):
+    """The (arch, shape) cells to run, in order, printing the SKIP line of
+    each other one: a shape not in the arch's ``shapes`` gets the
+    reference's line (the arch's notes); one the sharded step does not
+    cover yet says so. ``custom`` (a training shape) runs for every arch."""
+    for arch in archs:
+        a = get_config(arch)
+        names = list(a.shapes) if shape_name == "all" else [shape_name]
+        for shape in [custom] if custom else [SHAPES[n] for n in names]:
+            if not custom and shape.name not in a.shapes:
+                print(f"SKIP {arch} x {shape.name}: {a.notes}", flush=True)
+                continue
+            if not in_scope(a.model, shape):
+                print(f"SKIP {arch} x {shape.name}: not in the port's "
+                      "sharded step yet", flush=True)
+                continue
+            yield arch, shape
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="all")
-    ap.add_argument("--shape", default=SHAPE, choices=list(SHAPES))
+    ap.add_argument("--shape", default=SHAPE, choices=list(SHAPES) + ["all"],
+                    help="a shape, or all: every shape in each arch's "
+                         "shapes")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--mesh-shape", default="",
@@ -297,21 +393,15 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     if bool(args.batch) != bool(args.seq):
         ap.error("a custom shape takes both --batch and --seq")
+    custom = None
     if args.batch:
-        shape = ShapeConfig(f"custom_b{args.batch}_s{args.seq}", args.seq,
-                            args.batch, "train")
-    else:
-        shape = SHAPES[args.shape]
+        custom = ShapeConfig(f"custom_b{args.batch}_s{args.seq}", args.seq,
+                             args.batch, "train")
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     archs = list_archs() if args.arch == "all" else [args.arch]
     failed = 0
-    for arch in archs:
-        cfg = get_config(arch).model
-        if not in_scope(cfg, shape):
-            print(f"SKIP {arch} x {shape.name}: not in the port's sharded "
-                  "step yet", flush=True)
-            continue
+    for arch, shape in _arch_shapes(archs, args.shape, custom):
         for mesh_name, new_mesh in cells(args):
             out = outdir / f"{arch}__{shape.name}__{mesh_name}.json"
             if out.exists() and not args.force:

@@ -19,8 +19,19 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig = None):
     return make_step(cfg, opt_cfg, TrainConfig(microbatches=mb))
 
 
+def _sharded(params) -> bool:
+    from repro_torch.parallel.spmd import ShardedLM
+    return isinstance(params, ShardedLM)
+
+
 def make_prefill_step(cfg):
+    """``prefill_step(params, batch) -> (logits, caches)``: the prompt
+    through ``model.prefill_fn``, or, where ``params`` is one rank's
+    ``parallel.spmd.ShardedLM``, through its sharded prefill of the
+    rank's rows (its blocks of the logits and caches)."""
     def prefill_step(params, batch):
+        if _sharded(params):
+            return params.prefill(batch)
         logits, caches = M.prefill_fn(cfg, params, batch)
         return logits, caches
 
@@ -28,8 +39,12 @@ def make_prefill_step(cfg):
 
 
 def make_serve_step(cfg):
-    """One new token against a seq_len-deep cache (decode shapes)."""
+    """One new token against a seq_len-deep cache (decode shapes), through
+    ``model.decode_fn`` or a ``ShardedLM``'s sharded decode step; the
+    caches are advanced in place and returned."""
     def serve_step(params, token, pos, caches):
+        if _sharded(params):
+            return params.decode_step(caches, token, pos)
         logits, caches = M.decode_fn(cfg, params, caches, token, pos)
         return logits, caches
 

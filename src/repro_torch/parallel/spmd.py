@@ -1,5 +1,6 @@
-"""The sharded training step of every LM family: FSDP over "data" (HSDP
-over "pod") and tensor parallelism over "model".
+"""The sharded training step of every LM family, and the sharded prefill
+and decode steps of the dense and MoE ones: FSDP over "data" (HSDP over
+"pod") and tensor parallelism over "model".
 
 Counterpart of what ``jax.jit(train_step, in_shardings=...)`` makes of
 the reference's step in its dry run (``repro.launch.dryrun.build_lowered``):
@@ -57,9 +58,25 @@ gives its output):
   summation order. Capacity and routing are per data shard, as
   ``moe_ffn_local``'s.
 
+Serving (``ShardedLM.prefill`` and ``decode_step``, the dense and MoE
+families, forward only): the same modules called in a prefill or decode
+mode, so FSDP gathers a layer as in training, on the rank's rows. The
+rank keeps its block of the kv cache under ``sharding.cache_specs``:
+its kv heads where they divide over "model" (those its q heads read),
+else columns of every kv head's ``head_dim``. In that second layout a
+prefill computes k and v of every kv head from the weights gathered
+whole and keeps its columns; a decode step computes q, k and v of every
+head, sums the scores' partial products over the rank's columns across
+the model group (an f32 all-reduce of (B, H, S) a layer) before the
+softmax, runs P.V on its columns and sums its part of the output
+projection. No cache is gathered. Prefill attention runs the flash
+kernel (``layers.gqa_attention``); the logits are the last position's,
+the rank's vocabulary block where it divides.
+
 Every collective of the step (FSDP2's own included) goes through the
 c10d dispatcher, where :class:`Recorder` logs it. At world size 1 on a
-(1, 1) mesh the step is ``train.loop.make_step``'s bit for bit.
+(1, 1) mesh the step is ``train.loop.make_step``'s bit for bit, and the
+prefill and decode steps ``lm.prefill``'s and ``lm.decode_step``'s.
 """
 from __future__ import annotations
 
@@ -78,9 +95,12 @@ from repro_torch.models import layers as L, lm, seq2seq
 from repro_torch.optim import adamw
 from repro_torch.parallel import api
 from repro_torch.parallel.api import BATCH_AXES, Mesh, filter_spec
-from repro_torch.parallel.sharding import spec_for_leaf
+from repro_torch.parallel.sharding import cache_spec_for_leaf, \
+    spec_for_leaf
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# the families whose sharded prefill and decode steps are ported
+SERVE_FAMILIES = ("dense", "moe")
 AUX_WEIGHT = 0.01
 
 
@@ -313,18 +333,26 @@ class _Viewed:
     views: Dict[str, Optional[View]] = {}
     model_group = None
 
-    def _w(self, name: str) -> torch.Tensor:
-        v = self.views.get(name)
+    def _w(self, name: str, views=None) -> torch.Tensor:
+        v = (self.views if views is None else views).get(name)
         t = getattr(self, name)
         return t if v is None else _ModelView.apply(t, v, self.model_group)
 
 
 class Attention(_Viewed, L.Attention):
-    """A rank's attention: ``hq`` q heads and ``hkv`` kv heads, each
-    weight through its :class:`View`; ``group`` the model group when the
-    heads are split over it, else None."""
+    """A rank's attention: ``hq`` q heads and ``hkv`` kv heads (the
+    ``kv`` range of them), each weight through its :class:`View`;
+    ``group`` the model group when the heads are split over it, else
+    None. Serving (:meth:`prefill`, :meth:`decode`) keeps the rank's
+    block of the kv cache under ``sharding.cache_spec_for_leaf``: its kv
+    heads, or where the kv heads do not divide over "model", columns
+    ``cols`` of every kv head's ``head_dim`` (``whole`` then holds the
+    views that gather each weight whole)."""
     group = None
     hq = hkv = 0
+    kv: Tuple[int, int] = (0, 0)
+    cols: Optional[Tuple[int, int]] = None
+    whole: Dict[str, View] = {}
 
     def _out(self, q, k, v, causal: bool) -> torch.Tensor:
         o = L.blocked_attention(q, k, v, causal=causal,
@@ -332,23 +360,96 @@ class Attention(_Viewed, L.Attention):
         return api.row_output(o.reshape(*q.shape[:2], -1) @ self._w("wo"),
                               self.group)
 
+    def _proj(self, x: torch.Tensor, name: str, heads: int,
+              views=None) -> torch.Tensor:
+        """``x @ w`` (plus its bias) as (B, S, heads, hd) for ``name`` in
+        q, k, v, each weight through ``views`` (default the rank's)."""
+        cfg = self.cfg
+        t = x @ self._w("w" + name, views)
+        if cfg.qkv_bias:
+            t = t + self._w("b" + name, views)
+        return t.view(*x.shape[:2], heads, cfg.head_dim)
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """q of this rank's heads and k, v of its kv heads, RoPE on q and
+        k: ``L.Attention.qkv``'s ops."""
+        cfg = self.cfg
+        q, k, v = (self._proj(x, "q", self.hq), self._proj(x, "k", self.hkv),
+                   self._proj(x, "v", self.hkv))
+        return (L.apply_rope(q, positions, cfg.rope_theta),
+                L.apply_rope(k, positions, cfg.rope_theta), v)
+
     def blocked(self, x: torch.Tensor, positions: torch.Tensor,
                 causal: Optional[bool] = None) -> torch.Tensor:
         """``L.Attention.blocked`` on this rank's heads (``causal``: by
-        default the config's): the same ops in the same order, between
-        ``column_input`` and ``row_output``."""
+        default the config's): the same ops, between ``column_input`` and
+        ``row_output``."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        x = api.column_input(x, self.group)
-        q, k, v = x @ self._w("wq"), x @ self._w("wk"), x @ self._w("wv")
-        if cfg.qkv_bias:
-            q, k, v = q + self._w("bq"), k + self._w("bk"), v + self._w("bv")
-        q = q.view(B, S, self.hq, cfg.head_dim)
-        k = k.view(B, S, self.hkv, cfg.head_dim)
-        v = v.view(B, S, self.hkv, cfg.head_dim)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q, k, v = self._qkv(api.column_input(x, self.group), positions)
         return self._out(q, k, v, cfg.causal if causal is None else causal)
+
+    def _whole_kv(self, x: torch.Tensor, positions: torch.Tensor):
+        """k and v of every kv head from the weights gathered whole, RoPE
+        on k."""
+        cfg = self.cfg
+        k = self._proj(x, "k", cfg.n_kv_heads, self.whole)
+        return (L.apply_rope(k, positions, cfg.rope_theta),
+                self._proj(x, "v", cfg.n_kv_heads, self.whole))
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor):
+        """``L.Attention.forward`` (the flash kernel, through
+        ``layers.gqa_attention``) on this rank's heads: (out, (k, v) of
+        the rank's cache block). Where the cache holds columns, k and v
+        are computed for every kv head, the rank's kv heads attend, and
+        its columns of all of them are its cache block."""
+        cfg = self.cfg
+        if self.cols is None:
+            q, k, v = self._qkv(x, positions)
+            cache = (k, v)
+        else:
+            q = L.apply_rope(self._proj(x, "q", self.hq), positions,
+                             cfg.rope_theta)
+            kw, vw = self._whole_kv(x, positions)
+            k, v = kw[:, :, self.kv[0]:self.kv[1]], \
+                vw[:, :, self.kv[0]:self.kv[1]]
+            c0, c1 = self.cols
+            cache = (kw[..., c0:c1], vw[..., c0:c1])
+        o = L.gqa_attention(q, k, v, causal=cfg.causal)
+        out = api.row_output(o.reshape(*x.shape[:2], -1) @ self._w("wo"),
+                             self.group)
+        return out, cache
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int, positions: torch.Tensor
+               ) -> torch.Tensor:
+        """``L.Attention.decode`` on this rank's cache block (B, S, Hkv,
+        hd) of its rows, written at ``pos`` in place. On a block of kv
+        heads: the rank's heads, as there. On a block of columns: q, k
+        and v of every head from the gathered weights, the scores'
+        partial sums over the rank's columns summed over the model group
+        before the softmax, P.V on its columns, and its rows of ``wo``
+        (gathered whole) give a part of the output that the group sums."""
+        cfg = self.cfg
+        if self.cols is None:
+            q, k, v = self._qkv(x, positions)
+            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+            o = L.decode_attention(q, k_cache, v_cache, pos)
+            return api.row_output(o.reshape(x.shape[0], 1, -1)
+                                  @ self._w("wo"), self.group)
+        c0, c1 = self.cols
+        q = L.apply_rope(self._proj(x, "q", cfg.n_heads, self.whole),
+                         positions, cfg.rope_theta)
+        k, v = self._whole_kv(x, positions)
+        k_cache[:, pos] = k[:, 0, :, c0:c1].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0, :, c0:c1].to(v_cache.dtype)
+        o = _decode_columns(q, k_cache, v_cache, pos, self.cols,
+                            self.model_group)
+        hd = cfg.head_dim
+        wo = _ranges(self._w("wo", self.whole), 0,
+                     [(h * hd + c0, h * hd + c1) for h in range(cfg.n_heads)])
+        return api.row_output(o.reshape(x.shape[0], 1, -1) @ wo,
+                              self.model_group)
 
     def enc_kv(self, enc_x: torch.Tensor):
         """``seq2seq._enc_kv`` on this rank's kv heads: k and v of the
@@ -373,6 +474,28 @@ class Attention(_Viewed, L.Attention):
         if cfg.qkv_bias:
             q = q + self._w("bq").view(self.hq, cfg.head_dim)
         return self._out(q, k, v, False)
+
+
+def _decode_columns(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos: int, cols: Tuple[int, int],
+                    group) -> torch.Tensor:
+    """``layers.decode_attention`` where the caches (B, S, Hkv, c1 - c0)
+    hold columns ``cols`` of ``head_dim``: q (B, 1, Hq, hd) whole, scaled
+    and rounded as there; each score's f32 partial sum over these
+    columns summed over ``group`` (every rank's columns), the mask and
+    softmax, P rounded to the cache's dtype, P.V on these columns in
+    f32. Returns (B, 1, Hq, c1 - c0) in q's dtype."""
+    B, _, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = (q * L._scale_in(hd, q.dtype)).reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg[..., cols[0]:cols[1]].float(),
+                     k_cache.float())
+    s = api.row_output(s, group)
+    visible = torch.arange(S, device=q.device) <= pos
+    s = s.masked_fill(~visible, L.NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bgrk,bkgd->bgrd", p.float(), v_cache.float())
+    return o.reshape(B, 1, Hq, cols[1] - cols[0]).to(q.dtype)
 
 
 class Mamba(_Viewed, L.Mamba):
@@ -469,7 +592,22 @@ class Block(lm.Block):
         if ffn == "mlp":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mode: str = "train", caches=None, row: int = 0,
+                pos: int = 0):
+        """The training forward (x, aux); with ``mode`` "prefill" ``(x,
+        k, v)``, this layer's ``lm.Block.prefill`` with the rank's cache
+        block; with "decode" x after ``lm.Block.decode``, which writes
+        the rank's block of ``caches`` at ``row``, ``pos`` in place. A
+        call, so that FSDP gathers the layer in every mode."""
+        if mode != "train":
+            h = L.apply_norm(self.cfg.norm, x, self.ln1)
+            if mode == "prefill":
+                a, (k, v) = self.attn.prefill(h, positions)
+                return self._ffn(x + a)[0], k, v
+            a = self.attn.decode(h, caches["k"][row], caches["v"][row],
+                                 pos, positions)
+            return self._ffn(x + a, decode=True)[0]
         if self.mixer == "attn":
             return super().forward(x, positions)
         h = L.apply_norm(self.cfg.norm, x, self.ln1)
@@ -619,6 +757,7 @@ class _Sharded:
         else:
             q, kv = (0, Hq), (0, Hkv)
         attn.hq, attn.hkv = q[1] - q[0], kv[1] - kv[0]
+        attn.kv = kv
         attn.group = place.model if split else None
         attn.model_group = place.model
         need = {"wq": (1, q, Hq), "wk": (1, kv, Hkv), "wv": (1, kv, Hkv),
@@ -628,6 +767,30 @@ class _Sharded:
         attn.views = self._views(pre, {
             n: (dim, (lo * hd, hi * hd), H * hd)
             for n, (dim, (lo, hi), H) in need.items()}, split)
+
+    def _plan_cache(self, attn: Attention, pre: str, place: Place) -> None:
+        """The rank's block of this layer's kv cache, as
+        ``sharding.cache_spec_for_leaf`` puts the heads or ``head_dim``
+        over "model": its kv heads (those it attends with), or columns
+        ``attn.cols`` of every kv head, with the views that gather wq, wk,
+        wv and wo whole (``attn.whole``)."""
+        cfg, m, r = self.cfg, place.m, place.at["model"]
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        spec = cache_spec_for_leaf("k", (place.mesh.batch_shards, 1, Hkv,
+                                         hd), place.mesh)
+        heads, cols = (tuple(spec) + (None,) * 4)[2:4]
+        if heads is not None:
+            return
+        if cols is None:
+            raise ValueError(f"{cfg.name}: neither {Hkv} kv heads nor "
+                             f"head_dim {hd} divide over {m}: no cache "
+                             "block for the sharded serving step")
+        attn.cols = (r * hd // m, (r + 1) * hd // m)
+        need = {"wq": (1, Hq), "wk": (1, Hkv), "wv": (1, Hkv),
+                "wo": (0, Hq)}
+        attn.whole = self._views(pre, {
+            n: (dim, (0, H * hd), H * hd) for n, (dim, H) in need.items()},
+            False)
 
     def _plan_mamba(self, mb: Mamba, pre: str, place: Place) -> None:
         cfg, m, r = self.cfg, place.m, place.at["model"]
@@ -765,6 +928,7 @@ class ShardedLM(_Sharded, lm.DecoderLM):
             pre = f"blocks.{i}."
             if blk.mixer == "attn":
                 self._plan_attention(blk.attn, pre + "attn.", place)
+                self._plan_cache(blk.attn, pre + "attn.", place)
             else:
                 self._plan_mamba(blk.mamba, pre + "mamba.", place)
             if blk.ffn == "mlp":
@@ -781,14 +945,85 @@ class ShardedLM(_Sharded, lm.DecoderLM):
                     blk.router_gather = (0, place.group.get("data"),
                                          place.group.get("pod"))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """``lm.loss_fn`` of this rank's rows (aux weight 0.01)."""
+    def forward(self, batch: Dict[str, torch.Tensor], mode: str = "loss",
+                caches: Optional[lm.Cache] = None, pos: int = 0,
+                cache_len: Optional[int] = None):
+        """``lm.loss_fn`` of this rank's rows (aux weight 0.01); with
+        ``mode`` "prefill" or "decode", :meth:`prefill`'s or
+        :meth:`decode_step`'s work (called through the module, so that
+        FSDP gathers the root's parameters)."""
+        if mode == "prefill":
+            return self._prefill(batch, cache_len)
+        if mode == "decode":
+            return self._decode(batch["token"], caches, pos)
         tokens = batch["tokens"]
         x = self._embed(tokens, batch.get("patches"))
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x, aux = lm.run_blocks(self, x, positions)
         h = L.apply_norm(self.cfg.norm, x, self.ln_f)
         return self._cross_entropy(h, batch["labels"]) + AUX_WEIGHT * aux
+
+    # -- serving: the sharded prefill and decode steps --
+
+    def _serves(self) -> None:
+        if self.cfg.family not in SERVE_FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name} ({self.cfg.family}): the sharded serving "
+                f"step covers the {' and '.join(SERVE_FAMILIES)} families")
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of x (B, 1, D) times the rank's block of the
+        head: its vocabulary block of the logits where the vocabulary
+        divides over "model", else all of them."""
+        return L.apply_norm(self.cfg.norm, x, self.ln_f) @ self.head()
+
+    def _prefill(self, batch, cache_len):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(tokens, batch.get("patches"))
+        positions = torch.arange(S, device=tokens.device)
+        caches: lm.Cache = {}
+        for blk, row in zip(self.blocks, self.rows):
+            x, k, v = blk(x, positions, "prefill")
+            for name, t in (("k", k), ("v", v)):
+                if name not in caches:
+                    caches[name] = t.new_zeros(
+                        (len(self.blocks), B, cache_len or S) + t.shape[2:])
+                caches[name][row, :, :S] = t
+        return self._logits(x[:, -1:, :]), caches
+
+    def _decode(self, token: torch.Tensor, caches: lm.Cache, pos: int):
+        x = self._embed(token)
+        positions = torch.tensor([pos], device=token.device)
+        for blk, row in zip(self.blocks, self.rows):
+            x = blk(x, positions, "decode", caches, row, pos)
+        return self._logits(x), caches
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                cache_len: Optional[int] = None):
+        """``lm.prefill`` of this rank's rows (``tokens`` (B, S), a vision
+        arch's ``patches``), forward only: (the rank's block of the
+        last position's logits (B, 1, V or V / model), its block of the
+        cache with k and v of ``cache_len`` (default S) positions, as
+        ``sharding.cache_specs`` gives it). Attention runs the flash
+        kernel; at world 1 on (1, 1) this is ``lm.prefill`` bit for
+        bit."""
+        self._serves()
+        out = self(batch, "prefill", cache_len=cache_len)
+        self.reshard()
+        return out
+
+    @torch.no_grad()
+    def decode_step(self, caches: lm.Cache, token: torch.Tensor, pos: int):
+        """``lm.decode_step`` of this rank's rows: token (B, 1), one
+        position ``pos`` for every row (R6), ``caches`` the rank's block
+        (:meth:`prefill`), advanced in place; (the rank's block of the
+        logits (B, 1, V or V / model), caches). Never gathers a cache."""
+        self._serves()
+        out = self({"token": token}, "decode", caches, pos)
+        self.reshard()
+        return out
 
 
 class ShardedEncDec(_Sharded, seq2seq.EncDecLM):

@@ -24,8 +24,12 @@ against the reference's.
 - One production cell (qwen2.5-3b x train_4k x single_pod_16x16, ~30 s
   on a CPU) through the CLI under the fake group of 256 ranks: its
   JSON holds the reference's keys, and ``workload_demand`` of the port
-  and ``from_dryrun`` of both packages read it. A shape out of the
-  sharded step's scope prints a SKIP line and writes nothing.
+  and ``from_dryrun`` of both packages read it. A cell that does not run
+  prints a SKIP line and writes nothing: one out of the sharded step's
+  scope (mamba2-2.7b x long_500k) and one whose shape is not in the
+  arch's ``shapes`` (qwen2.5-3b x long_500k, the reference's line). The
+  serving cells of the dense and MoE archs run
+  (``test_torch_dryrun_serve.py``).
 - The SSM, hybrid and encoder-decoder archs' production cells at
   ``train_4k`` through the CLI (three processes at once, 25-45 s each
   on a CPU): each writes its file, which ``from_dryrun`` of both
@@ -334,7 +338,8 @@ def test_cli_production_cell_feeds_workload_demand(tmp_path):
     """qwen2.5-3b x train_4k x single_pod_16x16 under a fake group of 256
     ranks: the reference's file name and keys (less ``extrapolated``);
     ``workload_demand`` of the port and ``from_dryrun`` of both packages
-    read its collectives. Out of scope: a SKIP line, nothing written."""
+    read its collectives. A cell that does not run: a SKIP line, nothing
+    written."""
     from repro.core import demand as JD
     from repro_torch.core import demand as PDM, workload as PW
     out = subprocess.run(
@@ -377,8 +382,8 @@ def test_cli_production_cell_feeds_workload_demand(tmp_path):
     skip = tmp_path / "skip"
     for argv, line in [(["--arch", "mamba2-2.7b", "--shape", "long_500k"],
                         "SKIP mamba2-2.7b x long_500k"),
-                       (["--arch", "qwen2.5-3b", "--shape", "decode_32k"],
-                        "SKIP qwen2.5-3b x decode_32k")]:
+                       (["--arch", "qwen2.5-3b", "--shape", "long_500k"],
+                        "SKIP qwen2.5-3b x long_500k")]:
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
              "--device", "cpu", "--outdir", str(skip)],

@@ -1,5 +1,5 @@
-"""The processes of ``test_torch_spmd.py`` and ``test_torch_spmd_families.py``
-(no tests here): each function
+"""The processes of ``test_torch_spmd.py``, ``test_torch_spmd_families.py``
+and ``test_torch_spmd_serve.py`` (no tests here): each function
 runs in a rank started by ``torch_dp_workers.run`` (gloo, a ``file://``
 rendezvous) or in the test process itself with no group, and returns
 what it found. Imports only torch and the port."""
@@ -227,3 +227,130 @@ def world_one(rank, world_size, archs=ARCHS):
     return {"sharded": {a: sharded(rank, world_size, a, (1, 1))
                         for a in archs},
             "today": {a: today(a) for a in archs}}
+
+
+# --- serving: the sharded prefill and decode steps -------------------------
+
+# a prompt of S tokens into caches of S + SERVE_STEPS positions, then
+# SERVE_STEPS teacher-forced decode steps
+SERVE_STEPS = 2
+CACHE_LEN = S + SERVE_STEPS
+
+
+def serve_inputs(case: str):
+    """The prompt batch (step 0's tokens (B, S), a vision arch's patches)
+    and the decode tokens (B, SERVE_STEPS): step 1's first tokens."""
+    b0, b1 = batch(case, 0), batch(case, 1)
+    prompt = {k: v for k, v in b0.items() if k != "labels"}
+    return prompt, b1["tokens"][:, :SERVE_STEPS]
+
+
+def _clone(caches):
+    return {n: t.clone() for n, t in caches.items()}
+
+
+def serve_one_process(case: str, shape=(2, 2), init_dir=None, follow=None):
+    """``model.prefill_fn`` into CACHE_LEN positions, then SERVE_STEPS
+    ``decode_fn`` steps, in one process under a described mesh of
+    ``shape`` (an MoE's prefill dispatches per batch shard, its decode
+    over the whole batch, as the reference's), from :func:`initial`: the
+    logits of each step, the caches after the prefill and after the last
+    step, and every routing call. ``follow`` (a list of experts (T, K),
+    one a routing call in call order) makes call i choose ``follow[i]``."""
+    cfg = smoke(case)
+    model = initial(case, init_dir)
+    prompt, tokens = serve_inputs(case)
+    log = []
+    orig = _route_log(log, None if follow is None else follow.__getitem__)
+    try:
+        with api.mesh_context(api.Mesh(NAMES, shape)), torch.no_grad():
+            logits, caches = PM.prefill_fn(cfg, model, prompt,
+                                           cache_len=CACHE_LEN)
+            out = {"logits": [logits], "prefill_caches": _clone(caches)}
+            for i in range(SERVE_STEPS):
+                logits, caches = PM.decode_fn(cfg, model, caches,
+                                              tokens[:, i:i + 1], S + i)
+                out["logits"].append(logits)
+    finally:
+        PL.moe_route = orig
+    out.update(caches=caches, routes=log)
+    return out
+
+
+def serve_sharded(rank, world, case: str, shape, init_dir=None,
+                  follow=None):
+    """The same through ``ShardedLM.prefill`` and ``decode_step`` on a mesh
+    of ``shape`` over the group's ranks, from the whole model of
+    :func:`initial` cut by ``shard_state``, on this rank's rows: its
+    blocks of each step's logits and of the caches, its routing calls,
+    the collectives of each step (``spmd.Recorder``) and its mesh
+    position. ``follow(k, g)``: the experts routing call k of batch
+    shard g chooses."""
+    cfg = smoke(case)
+    mesh = make_mesh(NAMES, shape)
+    model = spmd.build(cfg, mesh, "cpu", spmd.shard_state(
+        initial(case, init_dir), mesh, rank))
+    prompt, tokens = serve_inputs(case)
+    rows = spmd.rank_rows(dict(prompt, next=tokens), model.place)
+    tokens = rows.pop("next")
+    log, logs = [], []
+    g = model.place.batch_shard
+    orig = _route_log(log, None if follow is None else
+                      (lambda k: follow(k, g)))
+    try:
+        rec = spmd.Recorder()
+        with rec:
+            logits, caches = model.prefill(rows, cache_len=CACHE_LEN)
+        logs.append(rec.log)
+        out = {"logits": [logits], "prefill_caches": _clone(caches)}
+        for i in range(SERVE_STEPS):
+            rec = spmd.Recorder()
+            with rec:
+                logits, caches = model.decode_step(
+                    caches, tokens[:, i:i + 1], S + i)
+            logs.append(rec.log)
+            out["logits"].append(logits)
+    finally:
+        PL.moe_route = orig
+    out.update(caches=caches, routes=log, collectives=logs,
+               at=model.place.at)
+    return out
+
+
+def serve_world(rank, world_size, shape, follows, cases=LM_CASES):
+    """Each of ``cases`` served sharded on ``shape`` from the reference's
+    weights; an MoE's again choosing the reference's experts (under
+    "followed"; ``follows[case][k][g]``: call k's experts of shard g)."""
+    init_dir = follows["init_dir"]
+    out = {}
+    for c in cases:
+        out[c] = serve_sharded(rank, world_size, c, shape, init_dir)
+        if smoke(c).n_experts:
+            want = follows[c]
+            out[c]["followed"] = serve_sharded(
+                rank, world_size, c, shape, init_dir,
+                follow=lambda k, g: want[k][g])
+    return out
+
+
+def serve_world_one(rank, world_size, archs=ARCHS):
+    """Each of ``archs`` served sharded on (1, 1) from seed 0, beside the
+    plain prefill and decode of the same weights in the same process
+    (under "plain"), both without a mesh."""
+    out = {"sharded": {}, "plain": {}}
+    for arch in archs:
+        out["sharded"][arch] = serve_sharded(rank, world_size, arch, (1, 1))
+        cfg = dataclasses.replace(smoke(arch), opt_moe_local_dispatch=False)
+        model = PM.init_params(cfg, 0, "cpu")
+        prompt, tokens = serve_inputs(arch)
+        with torch.no_grad():
+            logits, caches = PM.prefill_fn(cfg, model, prompt,
+                                           cache_len=CACHE_LEN)
+            plain = {"logits": [logits], "prefill_caches": _clone(caches)}
+            for i in range(SERVE_STEPS):
+                logits, caches = PM.decode_fn(cfg, model, caches,
+                                              tokens[:, i:i + 1], S + i)
+                plain["logits"].append(logits)
+        plain["caches"] = caches
+        out["plain"][arch] = plain
+    return out
