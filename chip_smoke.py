@@ -215,19 +215,27 @@ DRYRUN_WORLD1_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b",
                        "seamless-m4t-medium")
 DRYRUN_PEAK_REL = 0.15
 DRYRUN_TIMEOUT_S = 600
-# the serving dry run (launch/dryrun.py at prefill_32k and decode_32k):
-# DRYRUN_SERVE_ARCH's production cells at DRYRUN_SERVE_SHAPES on
+# the serving dry run (launch/dryrun.py at prefill_32k, decode_32k and
+# long_500k): DRYRUN_SERVE_ARCH's production cells at DRYRUN_SERVE_SHAPES
+# and DRYRUN_SERVE_LONG's B = 1 cell (the row whole on every rank, the kv
+# cache's sequence over "data" and its head_dim over "model") on
 # single_pod_16x16, on fake CUDA tensors and on fake CPU tensors, each in
-# a process of its own; and the sharded prefill and decode
-# (ShardedLM.prefill / decode_step) on a (1, 1) mesh of one NCCL rank for
+# a process of its own; and the sharded prefill and decode (the sharded
+# model's prefill / decode_step) on a (1, 1) mesh of one NCCL rank for
 # DRYRUN_SERVE_WORLD1 (qwen2.5-3b whole with the serve prompts,
 # deepseek-moe-16b at TRAIN_FAMILY_LAYERS' cut with the first
-# FAMILY_REQUESTS of them): each prompt prefilled alone, then
-# DRYRUN_SERVE_STEPS greedy decode steps, bit for bit with lm.prefill /
-# lm.decode_step on the same weights
+# FAMILY_REQUESTS of them, mamba2-2.7b whole, jamba at TRAIN_FAMILY_LAYERS'
+# cut of one super-block and seamless-m4t-medium whole (zero frames of
+# the prompt's length) with the first DRYRUN_SERVE_FAMILY_PROMPTS): each
+# prompt prefilled alone, then DRYRUN_SERVE_STEPS greedy decode steps,
+# bit for bit with model.prefill_fn / decode_fn on the same weights
 DRYRUN_SERVE_ARCH = "qwen2.5-3b"
 DRYRUN_SERVE_SHAPES = ("prefill_32k", "decode_32k")
-DRYRUN_SERVE_WORLD1 = ("qwen2.5-3b", "deepseek-moe-16b")
+DRYRUN_SERVE_LONG = ("jamba-v0.1-52b", "long_500k")
+DRYRUN_SERVE_WORLD1 = ("qwen2.5-3b", "deepseek-moe-16b", "mamba2-2.7b",
+                       "jamba-v0.1-52b", "seamless-m4t-medium")
+DRYRUN_SERVE_FAMILY_PROMPTS = {"mamba2-2.7b": 2, "jamba-v0.1-52b": 2,
+                               "seamless-m4t-medium": 2}
 DRYRUN_SERVE_STEPS = 3
 # a dry-run record's figures that the card's fake run must equal the CPU's
 DRYRUN_RECORD_KEYS = ("flops_per_dev", "bytes_per_dev", "collectives",
@@ -2889,25 +2897,32 @@ def flash_dispatch(fa, ops, dev="cuda"):
 
 def sharded_serve(fa, cfg, prompts, dev="cuda"):
     """``cfg`` from seed 0 on the card, served twice on one NCCL rank: each
-    prompt prefilled alone into a cache DRYRUN_SERVE_STEPS longer, then
-    DRYRUN_SERVE_STEPS greedy decode steps; first through the sharded
-    ``ShardedLM.prefill`` / ``decode_step`` on a (1, 1) mesh
-    (``spmd.build`` from ``shard_state``), flash launches counted from
-    zero, then through ``lm.prefill`` / ``lm.decode_step`` on the same
-    weights, counted again. Returns each run's logits, tokens, caches,
-    launches and seconds."""
+    prompt prefilled alone into a cache DRYRUN_SERVE_STEPS longer (an
+    encoder-decoder's with zero frames of its length,
+    :func:`prefill_batch`), then DRYRUN_SERVE_STEPS greedy decode steps;
+    first through the sharded model's ``prefill`` / ``decode_step`` on a
+    (1, 1) mesh (``spmd.build``), flash launches counted from zero, then
+    through ``model.prefill_fn`` / ``decode_fn`` on the same weights,
+    counted again. Returns each run's logits, tokens, caches, launches
+    and seconds."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import lm
+    from repro_torch.models import model as PM
     from repro_torch.parallel import spmd
     gc.collect()
     torch.cuda.empty_cache()
-    whole = lm.init_params(cfg, 0, dev)
+    whole = PM.init_params(cfg, 0, dev)
     mesh = make_mesh(("data", "model"), (1, 1))
-    model = spmd.build(cfg, mesh, dev, spmd.shard_state(whole, mesh, 0))
-    sides = {"sharded": (lambda t, n: model.prefill({"tokens": t}, n),
+    # on (1, 1) the rank's block of every parameter is the whole tensor:
+    # shard_state's cut without its copy, which would not fit beside the
+    # two models of jamba's cut (26.6 GB each)
+    model = spmd.build(cfg, mesh, dev, {
+        n: p.detach() for n, p in whole.named_parameters()})
+    sides = {"sharded": (lambda b, n: model.prefill(b, n),
                          model.decode_step),
-             "plain": (lambda t, n: lm.prefill(whole, t, cache_len=n),
-                       lambda c, t, pos: lm.decode_step(whole, c, t, pos))}
+             "plain": (lambda b, n: PM.prefill_fn(cfg, whole, b,
+                                                  cache_len=n),
+                       lambda c, t, pos: PM.decode_fn(cfg, whole, c, t,
+                                                      pos))}
     runs = {}
     for name, (prefill, decode) in sides.items():
         logits, tokens, caches = [], [], []
@@ -2916,8 +2931,8 @@ def sharded_serve(fa, cfg, prompts, dev="cuda"):
         t0 = time.perf_counter()
         with torch.no_grad():
             for prompt in prompts:
-                tok = torch.as_tensor(prompt, device=dev)[None, :]
-                lg, cache = prefill(tok, len(prompt) + DRYRUN_SERVE_STEPS)
+                lg, cache = prefill(prefill_batch(cfg, prompt, dev),
+                                    len(prompt) + DRYRUN_SERVE_STEPS)
                 steps = [lg]
                 for i in range(DRYRUN_SERVE_STEPS):
                     tok = lg.argmax(-1)
@@ -2935,24 +2950,29 @@ def sharded_serve(fa, cfg, prompts, dev="cuda"):
 
 
 def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
-    """The serving dry run and the sharded serving step. Four processes
+    """The serving dry run and the sharded serving step. Six processes
     start together: DRYRUN_SERVE_ARCH's production cells at
-    DRYRUN_SERVE_SHAPES on ``single_pod_16x16`` (a fake group of 256
-    ranks), through the CLI on fake CUDA tensors and on fake CPU tensors;
-    each CUDA record must equal the CPU's figures (DRYRUN_RECORD_KEYS)
-    exactly, with no flash launch. Meanwhile the flash op's dispatch is
-    timed (:func:`flash_dispatch`), and on a (1, 1) mesh of one NCCL rank
-    each arch of DRYRUN_SERVE_WORLD1 is served through the sharded step
-    and the plain one (:func:`sharded_serve`): logits, greedy tokens and
-    caches bit for bit, and the same flash launches, one an attention
-    layer and prefill. Returns the sharded path's launches by arch."""
+    DRYRUN_SERVE_SHAPES and DRYRUN_SERVE_LONG's cell on
+    ``single_pod_16x16`` (a fake group of 256 ranks), through the CLI on
+    fake CUDA tensors and on fake CPU tensors; each CUDA record must
+    equal the CPU's figures (DRYRUN_RECORD_KEYS) exactly, with no flash
+    launch. Meanwhile the flash op's dispatch is timed
+    (:func:`flash_dispatch`), and on a (1, 1) mesh of one NCCL rank each
+    arch of DRYRUN_SERVE_WORLD1 is served through the sharded step and
+    the plain one (:func:`sharded_serve`): logits, greedy tokens and
+    every cache bit for bit, and the same flash launches, one an
+    attention layer and prefill (an encoder-decoder's: each encoder
+    layer and the decoder's self and cross attention). Returns the
+    sharded path's launches by arch."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_serve_"))
-    procs = {(shape, d): dryrun_process(
-        out / d, "--arch", DRYRUN_SERVE_ARCH, "--shape", shape, "--mesh",
-        "single", dev=d)
-        for shape in DRYRUN_SERVE_SHAPES for d in (dev, "cpu")}
+    cells = [(DRYRUN_SERVE_ARCH, shape) for shape in DRYRUN_SERVE_SHAPES] \
+        + [DRYRUN_SERVE_LONG]
+    procs = {(arch, shape, d): dryrun_process(
+        out / d, "--arch", arch, "--shape", shape, "--mesh", "single",
+        dev=d)
+        for arch, shape in cells for d in (dev, "cpu")}
     dispatch = flash_dispatch(fa, ops, dev)
     emit(phase="flash_op_dispatch", shape=[1, 16, 2, FLASH_DISPATCH_S,
                                            FLASH_DISPATCH_S, 128],
@@ -2967,7 +2987,8 @@ def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
             cfg = family_config(get_config, arch, TRAIN_FAMILY_LAYERS)
             prompts = serve_prompts(cfg.vocab)
             if arch != SERVE_ARCH:
-                prompts = prompts[:FAMILY_REQUESTS]
+                prompts = prompts[:DRYRUN_SERVE_FAMILY_PROMPTS.get(
+                    arch, FAMILY_REQUESTS)]
             runs = sharded_serve(fa, cfg, prompts, dev)
             t_arch.append(time.perf_counter())
             sh, pl = runs["sharded"], runs["plain"]
@@ -2981,6 +3002,7 @@ def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
             launches[arch] = sh["launches"]
             emit(phase="dryrun_serve_world1", arch=arch, backend="nccl",
                  mesh=[1, 1], n_layers=cfg.n_layers,
+                 caches=sorted(sh["caches"][0]),
                  prompt_lens=[len(p) for p in prompts],
                  decode_steps=DRYRUN_SERVE_STEPS,
                  logits_equal=logits_equal, caches_equal=caches_equal,
@@ -2992,7 +3014,7 @@ def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
                  seconds=t_arch[-1] - t_arch[-2])
             check(logits_equal and caches_equal and tokens_equal,
                   f"{arch}: the sharded prefill and decode differ from "
-                  "lm.prefill / lm.decode_step")
+                  "prefill_fn / decode_fn")
             check(sh["launches"] == pl["launches"] == want,
                   f"{arch}: flash launches {sh['launches']} sharded, "
                   f"{pl['launches']} plain, want {want}")
@@ -3014,15 +3036,15 @@ def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
                 p.kill()
                 p.wait()
     wait_s = time.perf_counter() - t1
-    failed = {f"{s} {d}": logs.get((s, d), "")[-3000:]
-              for (s, d), p in procs.items() if p.returncode != 0}
+    failed = {f"{a} {s} {d}": logs.get((a, s, d), "")[-3000:]
+              for (a, s, d), p in procs.items() if p.returncode != 0}
     check(not failed, f"serving dry-run processes failed: {failed}")
-    for shape in DRYRUN_SERVE_SHAPES:
-        name = f"{DRYRUN_SERVE_ARCH}__{shape}__single_pod_16x16.json"
+    for arch, shape in cells:
+        name = f"{arch}__{shape}__single_pod_16x16.json"
         rec, cpu = (json.loads((out / d / name).read_text())
                     for d in (dev, "cpu"))
         diff = [k for k in DRYRUN_RECORD_KEYS if rec[k] != cpu[k]]
-        emit(phase="dryrun_serve_cell", arch=DRYRUN_SERVE_ARCH, shape=shape,
+        emit(phase="dryrun_serve_cell", arch=arch, shape=shape,
              mesh=rec["mesh"], chips=rec["chips"], kind=rec["kind"],
              collectives={k: {"count": v["count"],
                               "wire_bytes": v["wire_bytes"],
@@ -3035,12 +3057,12 @@ def phase_dryrun_serve(fa, ops, get_config, dev="cuda"):
              flash_launches=rec["flash_launches"],
              trace_s=rec["trace_s"], cpu_trace_s=cpu["trace_s"],
              device=rec["device"], equal_to_cpu=not diff, differ=diff)
-        check(not diff, f"{shape}: the card's fake record differs from the "
-              f"CPU's in {diff}")
+        check(not diff, f"{arch} {shape}: the card's fake record differs "
+              f"from the CPU's in {diff}")
         check(rec["flash_launches"] == 0 and rec["collectives"]
               and rec["memory"]["peak_live_bytes"]
               > rec["memory"]["argument_bytes"],
-              f"{shape}: an empty record or a flash launch")
+              f"{arch} {shape}: an empty record or a flash launch")
     shutil.rmtree(out, ignore_errors=True)
     emit(phase="dryrun_serve_seconds", seconds=time.perf_counter() - t0,
          world1_s=dict(zip(DRYRUN_SERVE_WORLD1, np.diff(t_arch).tolist())),

@@ -10,8 +10,9 @@ sharded step itself (``parallel.spmd``: FSDP over "data", HSDP over
 of a ``fake`` process group as large as the mesh (256 or 512 ranks),
 with every tensor a ``FakeTensor``, at the per-rank shapes: one
 ``train_4k`` step (forward, backward and AdamW), or one sharded prefill
-(``prefill_32k``) or decode step (``decode_32k``, one token a row
-against a cache of ``seq_len`` positions) under ``torch.no_grad()``.
+(``prefill_32k``) or decode step (``decode_32k``, ``long_500k``: one
+token a row against a cache of ``seq_len`` positions) under
+``torch.no_grad()``.
 The model is built without weights and nothing is allocated; every
 collective returns at once. Prefill attention reaches the flash kernel
 through its custom op, whose fake part returns an empty output: nothing
@@ -34,7 +35,9 @@ either package reads it):
 - ``memory``: ``argument_bytes``, the rank's shards of the parameters
   and its batch rows, with the AdamW moments and step for training, and
   for decode the token rows, the position (4 bytes) and the rank's
-  cache blocks; ``alias_bytes``, the donated arguments (training: all
+  cache blocks, and of the parameters and the position only those the
+  step reads (:func:`decode_reads`), as XLA keeps no argument its
+  program never reads; ``alias_bytes``, the donated arguments (training: all
   but the batch; decode: the caches; prefill: none), each summed from
   the local tensors the step holds; ``peak_live_bytes``, the most bytes
   the rank's live storages held at once over the step (:class:`Meter`,
@@ -50,15 +53,16 @@ either package reads it):
 
 The step traces every layer, so nothing is extrapolated from shallower
 models (the reference's ``extrapolated`` is left out). The port's
-sharded step covers every family (dense, MoE, SSM, hybrid and
-encoder-decoder: all ten archs) at ``train_4k`` and at a custom
-training shape, and the dense and MoE families at ``prefill_32k`` and
-``decode_32k``. Another cell prints a SKIP line and writes nothing: a
-shape not in the arch's ``shapes`` the reference's line with the arch's
-notes; a serving cell of the SSM, hybrid and encoder-decoder families,
-and ``long_500k`` (its B = 1 sequence-over-"data" layout), "not in the
-port's sharded step yet". ``--shape all`` runs each arch's ``shapes``,
-as the reference's CLI does.
+sharded step covers every cell the reference writes: every family
+(dense, MoE, SSM, hybrid and encoder-decoder: all ten archs) at
+``train_4k`` and at a custom training shape, at ``prefill_32k`` and
+``decode_32k``, and at ``long_500k``, a decode of one row against a
+cache of 524,288 positions (mamba2-2.7b and jamba: the row whole on
+every batch rank, jamba's kv cache with its sequence over "data" and
+its ``head_dim`` over "model"). A shape not in the arch's ``shapes``
+prints the reference's SKIP line with the arch's notes and writes
+nothing. ``--shape all`` runs each arch's ``shapes``, as the
+reference's CLI does: 64 files with ``--arch all --mesh both``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
@@ -106,17 +110,6 @@ POS_BYTES = 4
 # the ops whose bytes and outputs the Meter counts: aten's and the port's
 # custom ops (the flash kernel, ``repro_torch::flash_attention``)
 OP_NAMESPACES = ("aten", "repro_torch")
-
-
-def in_scope(cfg, shape: ShapeConfig) -> bool:
-    """Whether the sharded step runs this cell: any family at a training
-    shape (``train_4k``, or one given by ``--batch``/``--seq``), the
-    dense and MoE families at a serving shape (``prefill_32k``,
-    ``decode_32k``) whose batch splits over the batch axes."""
-    from repro_torch.parallel.spmd import FAMILIES, SERVE_FAMILIES
-    if shape.kind == "train":
-        return cfg.family in FAMILIES
-    return cfg.family in SERVE_FAMILIES and shape.global_batch > 1
 
 
 class Meter(torch.utils._python_dispatch.TorchDispatchMode):
@@ -194,6 +187,28 @@ class Meter(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
+def decode_reads(cfg, name: str) -> bool:
+    """Whether a decode step reads the parameter ``name``. XLA keeps no
+    argument its program never reads (``jax.jit`` prunes them), so the
+    reference's decode cells count none of these: an encoder-decoder's
+    encoder and its cross attention's k and v projections (the cache
+    holds ``ek`` and ``ev``), a vision arch's ``vis_proj``."""
+    if cfg.family == "encdec":
+        leaf = name.rsplit(".", 1)[-1]
+        return not (name.startswith(("enc_blocks.", "enc_ln_f")) or (
+            ".xattn." in name and leaf in ("wk", "wv", "bk", "bv")))
+    return name != "vis_proj"
+
+
+def decode_reads_pos(cfg) -> bool:
+    """Whether a decode step reads its position: not where every layer is
+    a Mamba mixer (no RoPE, no kv cache to write), so that XLA drops the
+    reference's ``pos`` argument."""
+    from repro_torch.models.lm import layer_kinds
+    return cfg.family == "encdec" or any(
+        m == "attn" for m, _ in layer_kinds(cfg))
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -221,11 +236,12 @@ def trace_step(cfg, shape: ShapeConfig, new_mesh: Callable[..., Mesh],
       the arguments are the parameters and the batch rows (tokens, a
       vision arch's patches), nothing donated;
     - decode: ``make_serve_step`` at the cache's last position; the
-      arguments are the parameters, the token rows (B, 1) int32, the
+      arguments are the parameters it reads, the token rows (B, 1) int32, the
       position (the reference's traced int32 scalar: 4 bytes; the port
       passes a Python int, R6) and the rank's cache blocks
-      (``specs.decode_specs``), the caches donated, as the reference
-      donates them."""
+      (``specs.decode_specs``, whose specs the step also takes: a B = 1
+      decode holds its rows whole and its kv cache's sequence over
+      "data"), the caches donated, as the reference donates them."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -251,12 +267,14 @@ def trace_step(cfg, shape: ShapeConfig, new_mesh: Callable[..., Mesh],
                                device)["token"]
                 caches = _local(caches, cspec, mesh, device)
                 donated = list(caches.values())
-                args = params + [token] + donated
-                extra = POS_BYTES
+                args = [p for n, p in model.local_params().items()
+                        if decode_reads(cfg, n)] + [token] + donated
+                extra = POS_BYTES if decode_reads_pos(cfg) else 0
 
                 def run():
                     steps.make_serve_step(cfg)(model, token,
-                                               shape.seq_len - 1, caches)
+                                               shape.seq_len - 1, caches,
+                                               cspec)
             else:
                 whole, spec = batch_specs(cfg, shape, mesh)
                 batch = _local(whole, spec, mesh, device)
@@ -275,7 +293,7 @@ def trace_step(cfg, shape: ShapeConfig, new_mesh: Callable[..., Mesh],
 
                     def run():
                         spmd.make_step(adamw.OptConfig())(model, opt, batch)
-            rec, meter = spmd.Recorder(), Meter(args)
+            rec, meter = spmd.Recorder(), Meter(params + args)
             with meter, rec:
                 run()
     finally:
@@ -348,20 +366,15 @@ def cells(args) -> List[Tuple[str, Callable[..., Mesh]]]:
 
 
 def _arch_shapes(archs: List[str], shape_name: str, custom):
-    """The (arch, shape) cells to run, in order, printing the SKIP line of
-    each other one: a shape not in the arch's ``shapes`` gets the
-    reference's line (the arch's notes); one the sharded step does not
-    cover yet says so. ``custom`` (a training shape) runs for every arch."""
+    """The (arch, shape) cells to run, in order, printing the reference's
+    SKIP line (the arch's notes) for a shape not in the arch's
+    ``shapes``. ``custom`` (a training shape) runs for every arch."""
     for arch in archs:
         a = get_config(arch)
         names = list(a.shapes) if shape_name == "all" else [shape_name]
         for shape in [custom] if custom else [SHAPES[n] for n in names]:
             if not custom and shape.name not in a.shapes:
                 print(f"SKIP {arch} x {shape.name}: {a.notes}", flush=True)
-                continue
-            if not in_scope(a.model, shape):
-                print(f"SKIP {arch} x {shape.name}: not in the port's "
-                      "sharded step yet", flush=True)
                 continue
             yield arch, shape
 

@@ -20,15 +20,17 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig = None):
 
 
 def _sharded(params) -> bool:
-    from repro_torch.parallel.spmd import ShardedLM
-    return isinstance(params, ShardedLM)
+    from repro_torch.parallel.spmd import ShardedEncDec, ShardedLM
+    return isinstance(params, (ShardedLM, ShardedEncDec))
 
 
 def make_prefill_step(cfg):
     """``prefill_step(params, batch) -> (logits, caches)``: the prompt
-    through ``model.prefill_fn``, or, where ``params`` is one rank's
-    ``parallel.spmd.ShardedLM``, through its sharded prefill of the
-    rank's rows (its blocks of the logits and caches)."""
+    (an encoder-decoder's with its ``frames``) through
+    ``model.prefill_fn``, or, where ``params`` is one rank's
+    ``parallel.spmd.ShardedLM`` or ``ShardedEncDec``, through its
+    sharded prefill of the rank's rows (its blocks of the logits and
+    caches)."""
     def prefill_step(params, batch):
         if _sharded(params):
             return params.prefill(batch)
@@ -40,11 +42,13 @@ def make_prefill_step(cfg):
 
 def make_serve_step(cfg):
     """One new token against a seq_len-deep cache (decode shapes), through
-    ``model.decode_fn`` or a ``ShardedLM``'s sharded decode step; the
+    ``model.decode_fn`` or a sharded model's decode step, which takes
+    the whole cache's ``specs`` (``sharding.cache_specs``: where a B = 1
+    decode's rows are whole and its sequence lies over "data"); the
     caches are advanced in place and returned."""
-    def serve_step(params, token, pos, caches):
+    def serve_step(params, token, pos, caches, specs=None):
         if _sharded(params):
-            return params.decode_step(caches, token, pos)
+            return params.decode_step(caches, token, pos, specs)
         logits, caches = M.decode_fn(cfg, params, caches, token, pos)
         return logits, caches
 

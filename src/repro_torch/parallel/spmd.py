@@ -1,6 +1,6 @@
-"""The sharded training step of every LM family, and the sharded prefill
-and decode steps of the dense and MoE ones: FSDP over "data" (HSDP over
-"pod") and tensor parallelism over "model".
+"""The sharded training, prefill and decode steps of every LM family:
+FSDP over "data" (HSDP over "pod") and tensor parallelism over
+"model".
 
 Counterpart of what ``jax.jit(train_step, in_shardings=...)`` makes of
 the reference's step in its dry run (``repro.launch.dryrun.build_lowered``):
@@ -58,25 +58,45 @@ gives its output):
   summation order. Capacity and routing are per data shard, as
   ``moe_ffn_local``'s.
 
-Serving (``ShardedLM.prefill`` and ``decode_step``, the dense and MoE
-families, forward only): the same modules called in a prefill or decode
-mode, so FSDP gathers a layer as in training, on the rank's rows. The
-rank keeps its block of the kv cache under ``sharding.cache_specs``:
-its kv heads where they divide over "model" (those its q heads read),
-else columns of every kv head's ``head_dim``. In that second layout a
-prefill computes k and v of every kv head from the weights gathered
-whole and keeps its columns; a decode step computes q, k and v of every
-head, sums the scores' partial products over the rank's columns across
-the model group (an f32 all-reduce of (B, H, S) a layer) before the
-softmax, runs P.V on its columns and sums its part of the output
-projection. No cache is gathered. Prefill attention runs the flash
-kernel (``layers.gqa_attention``); the logits are the last position's,
-the rank's vocabulary block where it divides.
+Serving (``prefill`` and ``decode_step`` of every family, forward only):
+the same modules called in a prefill or decode mode, so FSDP gathers a
+layer as in training, on the rank's rows. The rank keeps exactly its
+block of the cache under ``sharding.cache_specs``:
+- k and v: its kv heads where they divide over "model" (those its q
+  heads read), else columns of every kv head's ``head_dim``. In that
+  second layout a prefill computes k and v of every kv head from the
+  weights gathered whole and keeps its columns; a decode step computes
+  q, k and v of every head, sums the scores' partial products over the
+  rank's columns across the model group (an f32 all-reduce of (B, H,
+  S) a layer) before the softmax, runs P.V on its columns and sums its
+  part of the output projection. Where the rows do not split over the
+  batch axes (a B = 1 decode) the sequence lies over "data": only the
+  rank whose positions hold ``pos`` writes it, and the softmax spans
+  the data ranks (an f32 max and sum all-reduced, P.V summed). No
+  k or v cache is gathered;
+- a Mamba layer's ``ssm`` state: the rank's heads; its ``conv`` window:
+  the spec's contiguous block of the C conv channels, which is not the
+  channels its heads compute with (their x channels and the B and C
+  they read). A prefill computes the raw conv inputs of the block at the
+  last K - 1 positions from ``in_proj`` (gathered whole); a decode step
+  all-gathers the layer's (B, K - 1, C) window over "model", convolves
+  its own channels with the new position's raw inputs of all C, and
+  writes back its block;
+- an encoder-decoder's ``ek`` and ``ev``: whole on every rank (their
+  spec is ``()``, as XLA's output shardings make them), gathered over
+  the model heads and the batch rows by the prefill; a decode step's
+  cross attention reads its rows and kv heads of them.
+Prefill attention runs the flash kernel (``layers.gqa_attention``): an
+encoder's non-causal, a decoder's causal self attention and its
+non-causal cross attention. The logits are the last position's, the
+rank's vocabulary block where it divides. Rows that do not split over
+the batch axes are held whole on every batch rank, and nothing is summed
+over the batch groups then (each holds the same rows).
 
 Every collective of the step (FSDP2's own included) goes through the
 c10d dispatcher, where :class:`Recorder` logs it. At world size 1 on a
 (1, 1) mesh the step is ``train.loop.make_step``'s bit for bit, and the
-prefill and decode steps ``lm.prefill``'s and ``lm.decode_step``'s.
+prefill and decode steps ``model.prefill_fn``'s and ``decode_fn``'s.
 """
 from __future__ import annotations
 
@@ -99,8 +119,6 @@ from repro_torch.parallel.sharding import cache_spec_for_leaf, \
     spec_for_leaf
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
-# the families whose sharded prefill and decode steps are ported
-SERVE_FAMILIES = ("dense", "moe")
 AUX_WEIGHT = 0.01
 
 
@@ -205,15 +223,21 @@ class Place:
 def rank_rows(batch: Dict[str, torch.Tensor], place: Place
               ) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch: batch shard ``place.batch_shard``
-    of ``mesh.batch_shards`` equal shards of rows."""
-    n = place.mesh.batch_shards
+    of ``mesh.batch_shards`` equal shards of rows, or all of them where
+    ``filter_spec`` replicates the rows over the batch axes (a B = 1
+    decode's token, as ``specs.decode_specs`` gives it)."""
+    mesh = place.mesh
+    n = mesh.batch_shards
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"{k}: {v.shape[0]} rows do not split over "
-                             f"{n} batch shards")
-        b = v.shape[0] // n
-        out[k] = v[place.batch_shard * b:(place.batch_shard + 1) * b]
+        if v.shape[0] % n == 0:
+            b = v.shape[0] // n
+            out[k] = v[place.batch_shard * b:(place.batch_shard + 1) * b]
+        elif not filter_spec((BATCH_AXES,), mesh, v.shape[:1]):
+            out[k] = v
+        else:
+            raise ValueError(f"{k}: {v.shape[0]} rows split over some of "
+                             f"the batch axes, not all {n} batch shards")
     return out
 
 
@@ -313,15 +337,22 @@ class _DataGather(torch.autograd.Function):
 # --- the modules ------------------------------------------------------------
 
 
-def _ranges(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
-    """The ranges ``[(lo, hi), ...]`` of dimension ``dim`` of ``t``, in
-    order, as one tensor: ``t`` itself where they cover it whole."""
+def _merged(ranges) -> List[List[int]]:
+    """The ranges ``[(lo, hi), ...]`` with each one that starts where the
+    one before it ends joined to it."""
     merged: List[List[int]] = []
     for lo, hi in ranges:
         if merged and merged[-1][1] == lo:
             merged[-1][1] = hi
         else:
             merged.append([lo, hi])
+    return merged
+
+
+def _ranges(t: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """The ranges ``[(lo, hi), ...]`` of dimension ``dim`` of ``t``, in
+    order, as one tensor: ``t`` itself where they cover it whole."""
+    merged = _merged(ranges)
     if merged == [[0, t.shape[dim]]]:
         return t
     return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in merged], dim)
@@ -347,16 +378,26 @@ class Attention(_Viewed, L.Attention):
     block of the kv cache under ``sharding.cache_spec_for_leaf``: its kv
     heads, or where the kv heads do not divide over "model", columns
     ``cols`` of every kv head's ``head_dim`` (``whole`` then holds the
-    views that gather each weight whole)."""
+    views that gather each weight whole); its positions, where the
+    sequence lies over "data" (``data``: that group, None without one,
+    and the rank's index on it)."""
     group = None
     hq = hkv = 0
     kv: Tuple[int, int] = (0, 0)
     cols: Optional[Tuple[int, int]] = None
     whole: Dict[str, View] = {}
+    data: Tuple = (None, 0)
 
     def _out(self, q, k, v, causal: bool) -> torch.Tensor:
         o = L.blocked_attention(q, k, v, causal=causal,
                                 block=self.cfg.attn_block)
+        return api.row_output(o.reshape(*q.shape[:2], -1) @ self._w("wo"),
+                              self.group)
+
+    def _flash(self, q, k, v, causal: bool) -> torch.Tensor:
+        """The flash kernel (``layers.gqa_attention``) on the rank's heads,
+        then its rows of ``wo``, summed over the model group."""
+        o = L.gqa_attention(q, k, v, causal=causal)
         return api.row_output(o.reshape(*q.shape[:2], -1) @ self._w("wo"),
                               self.group)
 
@@ -396,12 +437,14 @@ class Attention(_Viewed, L.Attention):
         return (L.apply_rope(k, positions, cfg.rope_theta),
                 self._proj(x, "v", cfg.n_kv_heads, self.whole))
 
-    def prefill(self, x: torch.Tensor, positions: torch.Tensor):
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor,
+                causal: Optional[bool] = None):
         """``L.Attention.forward`` (the flash kernel, through
-        ``layers.gqa_attention``) on this rank's heads: (out, (k, v) of
-        the rank's cache block). Where the cache holds columns, k and v
-        are computed for every kv head, the rank's kv heads attend, and
-        its columns of all of them are its cache block."""
+        ``layers.gqa_attention``; ``causal``: by default the config's) on
+        this rank's heads: (out, (k, v) of the rank's cache block). Where
+        the cache holds columns, k and v are computed for every kv head,
+        the rank's kv heads attend, and its columns of all of them are
+        its cache block."""
         cfg = self.cfg
         if self.cols is None:
             q, k, v = self._qkv(x, positions)
@@ -414,37 +457,45 @@ class Attention(_Viewed, L.Attention):
                 vw[:, :, self.kv[0]:self.kv[1]]
             c0, c1 = self.cols
             cache = (kw[..., c0:c1], vw[..., c0:c1])
-        o = L.gqa_attention(q, k, v, causal=cfg.causal)
-        out = api.row_output(o.reshape(*x.shape[:2], -1) @ self._w("wo"),
-                             self.group)
-        return out, cache
+        return self._flash(q, k, v, cfg.causal if causal is None
+                           else causal), cache
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
-               v_cache: torch.Tensor, pos: int, positions: torch.Tensor
-               ) -> torch.Tensor:
+               v_cache: torch.Tensor, pos: int, positions: torch.Tensor,
+               seq: bool = False) -> torch.Tensor:
         """``L.Attention.decode`` on this rank's cache block (B, S, Hkv,
         hd) of its rows, written at ``pos`` in place. On a block of kv
         heads: the rank's heads, as there. On a block of columns: q, k
         and v of every head from the gathered weights, the scores'
         partial sums over the rank's columns summed over the model group
         before the softmax, P.V on its columns, and its rows of ``wo``
-        (gathered whole) give a part of the output that the group sums."""
+        (gathered whole) give a part of the output that the group sums.
+        With ``seq`` the block holds the rank's positions of a sequence
+        split over "data" (:func:`_decode_block`), and only the rank
+        that holds ``pos`` writes it."""
         cfg = self.cfg
+        group, d = self.data if seq else (None, 0)
+        first = d * k_cache.shape[1]
+        where = pos - first if first <= pos < first + k_cache.shape[1] \
+            else None
         if self.cols is None:
             q, k, v = self._qkv(x, positions)
-            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-            o = L.decode_attention(q, k_cache, v_cache, pos)
+            if where is not None:
+                k_cache[:, where] = k[:, 0].to(k_cache.dtype)
+                v_cache[:, where] = v[:, 0].to(v_cache.dtype)
+            o = _decode_block(q, k_cache, v_cache, pos, None, None,
+                              (group, first))
             return api.row_output(o.reshape(x.shape[0], 1, -1)
                                   @ self._w("wo"), self.group)
         c0, c1 = self.cols
         q = L.apply_rope(self._proj(x, "q", cfg.n_heads, self.whole),
                          positions, cfg.rope_theta)
         k, v = self._whole_kv(x, positions)
-        k_cache[:, pos] = k[:, 0, :, c0:c1].to(k_cache.dtype)
-        v_cache[:, pos] = v[:, 0, :, c0:c1].to(v_cache.dtype)
-        o = _decode_columns(q, k_cache, v_cache, pos, self.cols,
-                            self.model_group)
+        if where is not None:
+            k_cache[:, where] = k[:, 0, :, c0:c1].to(k_cache.dtype)
+            v_cache[:, where] = v[:, 0, :, c0:c1].to(v_cache.dtype)
+        o = _decode_block(q, k_cache, v_cache, pos, self.cols,
+                          self.model_group, (group, first))
         hd = cfg.head_dim
         wo = _ranges(self._w("wo", self.whole), 0,
                      [(h * hd + c0, h * hd + c1) for h in range(cfg.n_heads)])
@@ -464,38 +515,73 @@ class Attention(_Viewed, L.Attention):
             v = v + self._w("bv").view(shape[2:])
         return k, v
 
-    def cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> torch.Tensor:
-        """``layers.cross_attention`` (blocked, no RoPE) on this rank's
-        heads: q from ``x`` over :meth:`enc_kv`'s k and v."""
+    def cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              flash: bool = False) -> torch.Tensor:
+        """``layers.cross_attention`` (no RoPE, non-causal; blocked, or
+        with ``flash`` the flash kernel) on this rank's heads: q from
+        ``x`` over :meth:`enc_kv`'s k and v."""
         cfg = self.cfg
         q = (api.column_input(x, self.group) @ self._w("wq")).view(
             x.shape[:2] + (self.hq, cfg.head_dim))
         if cfg.qkv_bias:
             q = q + self._w("bq").view(self.hq, cfg.head_dim)
-        return self._out(q, k, v, False)
+        return (self._flash if flash else self._out)(q, k, v, False)
+
+    def cross_decode(self, x: torch.Tensor, ek: torch.Tensor,
+                     ev: torch.Tensor) -> torch.Tensor:
+        """``seq2seq.decode_step``'s cross attention on this rank's heads:
+        q of x (B, 1, D) without bias or RoPE over the rank's rows and kv
+        heads of the encoder's ``ek`` and ``ev`` (B, S_enc, Hkv, hd), all
+        S_enc positions visible."""
+        cfg = self.cfg
+        q = (api.column_input(x, self.group) @ self._w("wq")).view(
+            x.shape[0], 1, self.hq, cfg.head_dim)
+        o = L.decode_attention(q, ek[:, :, self.kv[0]:self.kv[1]],
+                               ev[:, :, self.kv[0]:self.kv[1]],
+                               ek.shape[1] - 1)
+        return api.row_output(o.reshape(x.shape[0], 1, -1) @ self._w("wo"),
+                              self.group)
 
 
-def _decode_columns(q: torch.Tensor, k_cache: torch.Tensor,
-                    v_cache: torch.Tensor, pos: int, cols: Tuple[int, int],
-                    group) -> torch.Tensor:
-    """``layers.decode_attention`` where the caches (B, S, Hkv, c1 - c0)
-    hold columns ``cols`` of ``head_dim``: q (B, 1, Hq, hd) whole, scaled
-    and rounded as there; each score's f32 partial sum over these
-    columns summed over ``group`` (every rank's columns), the mask and
-    softmax, P rounded to the cache's dtype, P.V on these columns in
-    f32. Returns (B, 1, Hq, c1 - c0) in q's dtype."""
+def _decode_block(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos: int,
+                  cols: Optional[Tuple[int, int]], model_group, seq
+                  ) -> torch.Tensor:
+    """``layers.decode_attention`` on a rank's block of the caches (B, S,
+    Hkv, c): q (B, 1, Hq, hd), scaled and rounded as there. ``cols``:
+    the block holds columns ``cols`` of ``head_dim`` (c = c1 - c0; q is
+    every head's), and each score's f32 partial sum over them is summed
+    over ``model_group``; None: all of it. ``seq`` = (group, first): the
+    block holds positions ``first``.. of a sequence split over
+    ``group``, whose softmax spans the group's ranks (the f32 row max
+    all-reduced (MAX), the exponentials' sum all-reduced, P rounded to
+    the cache's dtype, P.V in f32 summed over it); group None: the
+    block holds every position, softmax as there. Positions ``<= pos``
+    are visible. Returns (B, 1, Hq, c) in q's dtype."""
     B, _, Hq, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    group, first = seq
     qg = (q * L._scale_in(hd, q.dtype)).reshape(B, Hkv, Hq // Hkv, hd)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg[..., cols[0]:cols[1]].float(),
-                     k_cache.float())
-    s = api.row_output(s, group)
-    visible = torch.arange(S, device=q.device) <= pos
+    if cols is not None:
+        qg = qg[..., cols[0]:cols[1]]
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k_cache.float())
+    if cols is not None:
+        s = api.row_output(s, model_group)
+    visible = first + torch.arange(S, device=q.device) <= pos
     s = s.masked_fill(~visible, L.NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bgrk,bkgd->bgrd", p.float(), v_cache.float())
-    return o.reshape(B, 1, Hq, cols[1] - cols[0]).to(q.dtype)
+    if group is None:
+        p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+        o = torch.einsum("bgrk,bkgd->bgrd", p.float(), v_cache.float())
+    else:
+        import torch.distributed as dist
+        mx = s.amax(-1, keepdim=True)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(s - mx)
+        p = (e / api.row_output(e.sum(-1, keepdim=True), group)).to(
+            v_cache.dtype)
+        o = api.row_output(torch.einsum("bgrk,bkgd->bgrd", p.float(),
+                                        v_cache.float()), group)
+    return o.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)
 
 
 class Mamba(_Viewed, L.Mamba):
@@ -503,9 +589,12 @@ class Mamba(_Viewed, L.Mamba):
     groups ``groups`` they read; ``in_cols`` and ``conv_rows`` the
     ranges of ``in_proj``'s columns and the conv's channels that the
     rank computes with; ``group`` the model group when the heads are
-    split over it. Unplanned it holds every head: ``layers.mamba_block``
-    bit for bit."""
+    split over it. Serving keeps the block ``conv_block`` of the conv
+    channels of the conv window (``conv_split``: split over the model
+    group) and its heads' SSM state. Unplanned it holds every head:
+    ``layers.mamba_block`` bit for bit."""
     group = None
+    conv_split = False
 
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device)
@@ -525,6 +614,7 @@ class Mamba(_Viewed, L.Mamba):
         self.in_cols = (x,) + tuple((d_in + lo, d_in + hi)
                                     for lo, hi in self.conv_rows) + \
             ((dt + heads[0], dt + heads[1]),)
+        self.conv_block = (0, d_in + 2 * GN)
 
     def _gated_norm(self, g: torch.Tensor) -> torch.Tensor:
         """``rmsnorm(g, norm_w)`` over all of ``d_inner``: this rank's
@@ -538,17 +628,19 @@ class Mamba(_Viewed, L.Mamba):
         gf = gf * torch.rsqrt(ms + 1e-6)
         return (gf * (1.0 + w.float())).to(g.dtype)
 
-    def blocked(self, x: torch.Tensor) -> torch.Tensor:
-        """``layers.mamba_block`` (x (B, S, D) -> (B, S, D)) on this
-        rank's heads: the same ops in the same order, between
-        ``column_input`` and ``row_output``."""
+    def _mixer(self, x: torch.Tensor):
+        """``layers.mamba_block``'s ops in its order on this rank's heads,
+        between ``column_input`` and ``row_output``: (out, the raw conv
+        inputs of its ``conv_rows`` (B, S, ...), its heads' final SSM
+        state, the input as it entered, ``in_proj`` as read)."""
         cfg = self.cfg
         B, S, _ = x.shape
         P, N = cfg.ssm_head_dim, cfg.ssm_state
         h, g = self.heads[1] - self.heads[0], self.groups[1] - self.groups[0]
         x = api.column_input(x, self.group)
+        w_in = self._w("in_proj")
         z, xbc_raw, dt_raw = torch.split(
-            x @ _ranges(self._w("in_proj"), 1, self.in_cols),
+            x @ _ranges(w_in, 1, self.in_cols),
             [h * P, h * P + 2 * g * N, h], dim=-1)
         xbc = F.silu(L._causal_conv(
             xbc_raw, _ranges(self._w("conv_w"), 0, self.conv_rows),
@@ -556,11 +648,76 @@ class Mamba(_Viewed, L.Mamba):
         xs, Bm, Cm = torch.split(xbc, [h * P, g * N, g * N], dim=-1)
         xh = xs.reshape(B, S, h, P)
         dt = L.softplus(dt_raw.float() + self._w("dt_bias"))
-        y, _ = L.ssd_chunked(xh, dt, -torch.exp(self._w("A_log")),
-                             Bm.reshape(B, S, g, N), Cm.reshape(B, S, g, N),
-                             min(cfg.ssm_chunk, S))
+        y, state = L.ssd_chunked(xh, dt, -torch.exp(self._w("A_log")),
+                                 Bm.reshape(B, S, g, N),
+                                 Cm.reshape(B, S, g, N),
+                                 min(cfg.ssm_chunk, S))
         y = y + xh.float() * self._w("D")[:, None]
         y = self._gated_norm(y.reshape(B, S, h * P).to(x.dtype) * F.silu(z))
+        out = api.row_output(y @ self._w("out_proj"), self.group)
+        return out, xbc_raw, state, x, w_in
+
+    def blocked(self, x: torch.Tensor) -> torch.Tensor:
+        """``layers.mamba_block`` (x (B, S, D) -> (B, S, D)) on this
+        rank's heads: the same ops in the same order, between
+        ``column_input`` and ``row_output``."""
+        return self._mixer(x)[0]
+
+    def prefill(self, x: torch.Tensor):
+        """``layers.mamba_block(..., return_cache=True)`` on this rank's
+        heads: (out, its ``conv_block`` of the raw conv inputs at the
+        last K - 1 positions (B, K - 1, c1 - c0), its heads' final state
+        (B, h, P, N) f32). The block is cut from the rank's own conv
+        inputs where its heads read every channel, else computed from
+        ``in_proj``."""
+        out, xbc_raw, state, x, w_in = self._mixer(x)
+        tail = x.shape[1] - (self.cfg.ssm_conv - 1)
+        c0, c1 = self.conv_block
+        if _merged(self.conv_rows) == [[0, xbc_raw.shape[-1]]]:
+            conv = xbc_raw[:, tail:, c0:c1]
+        else:
+            d_in = self.cfg.d_inner
+            conv = x[:, tail:] @ w_in[:, d_in + c0:d_in + c1]
+        return out, conv, state
+
+    def decode(self, x: torch.Tensor, conv: torch.Tensor,
+               ssm: torch.Tensor) -> torch.Tensor:
+        """``layers.mamba_decode`` on this rank's heads, x (B, 1, D): its
+        block of the conv window ``conv`` (B, K - 1, c1 - c0), all-gathered
+        over the model group where it is split, and the new position's
+        raw inputs of all C channels give the window whose ``conv_rows``
+        the rank convolves; it writes back its block of the window and
+        its heads' state ``ssm`` (B, h, P, N) in place."""
+        cfg = self.cfg
+        B = x.shape[0]
+        P, N, d_in = cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+        C = d_in + 2 * cfg.ssm_groups * N
+        h, g = self.heads[1] - self.heads[0], self.groups[1] - self.groups[0]
+        x = api.column_input(x, self.group)
+        cols = [self.in_cols[0], (d_in, d_in + C), self.in_cols[-1]]
+        z, xbc, dt_raw = torch.split(
+            x @ _ranges(self._w("in_proj"), 1, cols), [h * P, C, h], dim=-1)
+        held = _gather(conv, 2, self.model_group) if self.conv_split \
+            else conv
+        window = torch.cat([held, xbc], dim=1)               # (B, K, C)
+        rows = self.conv_rows
+        conv_out = F.silu(torch.einsum(
+            "bkc,ck->bc", _ranges(window, 2, rows).float(),
+            _ranges(self._w("conv_w"), 0, rows).float())
+            + _ranges(self._w("conv_b"), 0, rows).float())
+        c0, c1 = self.conv_block
+        conv.copy_(window[:, 1:, c0:c1])
+        xs, Bm, Cm = torch.split(conv_out, [h * P, g * N, g * N], dim=-1)
+        xh = xs.reshape(B, h, P)
+        rep = h // g
+        dt = L.softplus(dt_raw[:, 0].float() + self._w("dt_bias"))
+        y, state = L.ssd_step(
+            ssm, xh, dt, -torch.exp(self._w("A_log")),
+            Bm.reshape(B, g, N).repeat_interleave(rep, 1),
+            Cm.reshape(B, g, N).repeat_interleave(rep, 1))
+        ssm.copy_(state)
+        y = y + xh * self._w("D")[:, None]
+        y = self._gated_norm(y.reshape(B, 1, h * P).to(x.dtype) * F.silu(z))
         return api.row_output(y @ self._w("out_proj"), self.group)
 
 
@@ -594,40 +751,58 @@ class Block(lm.Block):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mode: str = "train", caches=None, row: int = 0,
-                pos: int = 0):
+                pos: int = 0, layout: Tuple[bool, bool] = (False, False)):
         """The training forward (x, aux); with ``mode`` "prefill" ``(x,
-        k, v)``, this layer's ``lm.Block.prefill`` with the rank's cache
-        block; with "decode" x after ``lm.Block.decode``, which writes
-        the rank's block of ``caches`` at ``row``, ``pos`` in place. A
-        call, so that FSDP gathers the layer in every mode."""
+        this layer's cache block)``, ``lm.Block.prefill`` with the rank's
+        blocks ({"k", "v"} or {"conv", "ssm"}); with "decode" x after
+        ``lm.Block.decode``, which writes the rank's block of ``caches``
+        at ``row``, ``pos`` in place, ``layout`` (rows whole, sequence
+        over "data") as :meth:`_Sharded._layout` gives it. A call, so
+        that FSDP gathers the layer in every mode."""
         if mode != "train":
             h = L.apply_norm(self.cfg.norm, x, self.ln1)
             if mode == "prefill":
-                a, (k, v) = self.attn.prefill(h, positions)
-                return self._ffn(x + a)[0], k, v
-            a = self.attn.decode(h, caches["k"][row], caches["v"][row],
-                                 pos, positions)
-            return self._ffn(x + a, decode=True)[0]
+                if self.mixer == "attn":
+                    a, (k, v) = self.attn.prefill(h, positions)
+                    cache = {"k": k, "v": v}
+                else:
+                    a, conv, ssm = self.mamba.prefill(h)
+                    cache = {"conv": conv, "ssm": ssm}
+                return self._ffn(x + a)[0], cache
+            whole, seq = layout
+            if self.mixer == "attn":
+                a = self.attn.decode(h, caches["k"][row], caches["v"][row],
+                                     pos, positions, seq)
+            else:
+                a = self.mamba.decode(h, caches["conv"][row],
+                                      caches["ssm"][row])
+            return self._ffn(x + a, decode=True, whole_rows=whole)[0]
         if self.mixer == "attn":
             return super().forward(x, positions)
         h = L.apply_norm(self.cfg.norm, x, self.ln1)
         return self._ffn(x + self.mamba.blocked(h))
 
-    def _ffn(self, x: torch.Tensor, decode: bool = False):
+    def _ffn(self, x: torch.Tensor, decode: bool = False,
+             whole_rows: bool = False):
+        """``lm.Block._ffn``; an MoE through ``moe_ffn_ep``, its aux summed
+        over the batch groups unless every batch rank holds the same rows
+        (``whole_rows``)."""
         if self.ffn != "moe":
             return super()._ffn(x, decode)
         h = L.apply_norm(self.cfg.norm, x, self.ln2)
         router = None if self.router_gather is None else \
             _DataGather.apply(self.moe.router, *self.router_gather)
         f, aux = L.moe_ffn_ep(self.moe, h, self.cfg, self.first_expert,
-                              self.expert_group, self.batch_groups, router)
+                              self.expert_group,
+                              () if whole_rows else self.batch_groups, router)
         return x + f, aux
 
 
 class EncBlock(seq2seq.EncBlock):
     """``seq2seq.EncBlock`` with this module's attention and MLP; called,
     it is ``seq2seq._enc_layer``'s training form on this rank's heads
-    (FSDP gathers a layer when it is called)."""
+    (FSDP gathers a layer when it is called), or with ``mode`` "prefill"
+    its flash form (non-causal)."""
 
     def __init__(self, cfg):
         super().__init__(cfg, "meta")
@@ -635,17 +810,25 @@ class EncBlock(seq2seq.EncBlock):
         self.attn = Attention(cfg, "meta")
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mode: str = "train") -> torch.Tensor:
         norm = self.cfg.norm
-        x = x + self.attn.blocked(L.apply_norm(norm, x, self.ln1), positions,
-                                  causal=False)
+        h = L.apply_norm(norm, x, self.ln1)
+        if mode == "prefill":
+            x = x + self.attn.prefill(h, positions, causal=False)[0]
+        else:
+            x = x + self.attn.blocked(h, positions, causal=False)
         return x + self.mlp(L.apply_norm(norm, x, self.ln2))
 
 
 class DecBlock(seq2seq.DecBlock):
     """``seq2seq.DecBlock`` with this module's attentions and MLP; called,
-    it is ``seq2seq._dec_layer``'s training form on this rank's heads."""
+    it is ``seq2seq._dec_layer``'s training form on this rank's heads;
+    with ``mode`` "prefill" its flash form, (x, this layer's cache: the
+    rank's k and v, ``ek`` and ``ev`` of its kv heads and rows); with
+    "decode" ``seq2seq.decode_step``'s layer ``layer``, which writes the
+    rank's k and v block at ``pos`` in place and reads ``rows`` of the
+    whole ``ek`` and ``ev``."""
 
     def __init__(self, cfg):
         super().__init__(cfg, "meta")
@@ -654,13 +837,33 @@ class DecBlock(seq2seq.DecBlock):
         self.xattn = Attention(cfg, "meta")
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, "meta")
 
-    def forward(self, x: torch.Tensor, enc_x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, enc_x: Optional[torch.Tensor],
+                positions: torch.Tensor, mode: str = "train", caches=None,
+                layer: int = 0, pos: int = 0, rows: slice = slice(None),
+                seq: bool = False):
         norm = self.cfg.norm
-        x = x + self.attn.blocked(L.apply_norm(norm, x, self.ln1), positions)
-        k, v = self.xattn.enc_kv(enc_x)
-        x = x + self.xattn.cross(L.apply_norm(norm, x, self.ln_x), k, v)
-        return x + self.mlp(L.apply_norm(norm, x, self.ln2))
+        h = L.apply_norm(norm, x, self.ln1)
+        if mode == "decode":
+            x = x + self.attn.decode(h, caches["k"][layer],
+                                     caches["v"][layer], pos, positions, seq)
+            x = x + self.xattn.cross_decode(
+                L.apply_norm(norm, x, self.ln_x), caches["ek"][layer][rows],
+                caches["ev"][layer][rows])
+            return x + self.mlp(L.apply_norm(norm, x, self.ln2))
+        cache = None
+        if mode == "prefill":
+            a, (k, v) = self.attn.prefill(h, positions)
+        else:
+            a = self.attn.blocked(h, positions)
+        x = x + a
+        ek, ev = self.xattn.enc_kv(enc_x)
+        x = x + self.xattn.cross(L.apply_norm(norm, x, self.ln_x), ek, ev,
+                                 flash=mode == "prefill")
+        x = x + self.mlp(L.apply_norm(norm, x, self.ln2))
+        if mode == "prefill":
+            cache = {"k": k, "v": v, "ek": ek, "ev": ev}
+            return x, cache
+        return x
 
 
 def _vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -760,6 +963,7 @@ class _Sharded:
         attn.kv = kv
         attn.group = place.model if split else None
         attn.model_group = place.model
+        attn.data = (place.group.get("data"), place.at.get("data", 0))
         need = {"wq": (1, q, Hq), "wk": (1, kv, Hkv), "wv": (1, kv, Hkv),
                 "wo": (0, q, Hq)}
         if cfg.qkv_bias:
@@ -803,6 +1007,19 @@ class _Sharded:
         mb.group = place.model if split else None
         mb.model_group = place.model
         C, n_in = d_in + 2 * GN, 2 * d_in + 2 * GN + H
+        n = place.mesh.batch_shards
+        ssm = cache_spec_for_leaf("ssm", (n, H, P, cfg.ssm_state),
+                                  place.mesh)
+        if (m > 1 and "model" in _axes((tuple(ssm) + (None,) * 2)[1])) \
+                != split:
+            raise ValueError(f"{cfg.name}: the ssm cache's spec {ssm} and "
+                             f"the split of {H} SSM heads over {m} disagree")
+        conv = cache_spec_for_leaf("conv", (n, cfg.ssm_conv - 1, C),
+                                   place.mesh)
+        mb.conv_split = m > 1 and "model" in _axes(
+            (tuple(conv) + (None,) * 3)[2])
+        if mb.conv_split:
+            mb.conv_block = (r * C // m, (r + 1) * C // m)
         rows = (h[0] * P, h[1] * P)
         mb.views = self._views(pre, {
             "in_proj": (1, (0, n_in), n_in), "conv_w": (0, (0, C), C),
@@ -833,6 +1050,62 @@ class _Sharded:
             return lm.cross_entropy(h @ self.head(), labels)
         return _vocab_cross_entropy(api.column_input(h, g) @ self.head(),
                                     labels, self.vocab_lo, g)
+
+    # -- serving: the sharded prefill and decode steps --
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of x (B, 1, D) times the rank's block of the
+        head: its vocabulary block of the logits where the vocabulary
+        divides over "model", else all of them."""
+        return L.apply_norm(self.cfg.norm, x, self.ln_f) @ self.head()
+
+    def _layout(self, specs: Optional[Dict[str, tuple]]
+                ) -> Tuple[bool, bool]:
+        """(the rows whole on every batch rank, the kv cache's sequence
+        split over "data") of a decode step whose whole cache has the
+        specs ``specs`` (``sharding.cache_specs``); None: rows split over
+        the batch axes, as a prefill's."""
+        if specs is None:
+            return False, False
+
+        def entry(name, i):
+            spec = tuple(specs.get(name, ())) + (None,) * 5
+            return _axes(spec[i])
+        first = next(n for n in ("k", "conv") if n in specs)
+        whole = self.place.mesh.batch_shards > 1 and not entry(first, 1)
+        seq = "data" in entry("k", 2) and \
+            self.place.group.get("data") is not None
+        return whole, seq
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                cache_len: Optional[int] = None):
+        """``model.prefill_fn`` of this rank's rows (``tokens`` (B, S), a
+        vision arch's ``patches``, an encoder-decoder's ``frames``; rows
+        split over the batch axes, :func:`rank_rows`), forward only: (the
+        rank's block of the last position's logits (B, 1, V or V /
+        model), its block of the cache with k and v of ``cache_len``
+        (default S) positions, as ``sharding.cache_specs`` gives it).
+        Attention runs the flash kernel; at world 1 on (1, 1) this is
+        ``prefill_fn`` bit for bit."""
+        out = self(batch, "prefill", cache_len=cache_len)
+        self.reshard()
+        return out
+
+    @torch.no_grad()
+    def decode_step(self, caches: lm.Cache, token: torch.Tensor, pos: int,
+                    specs: Optional[Dict[str, tuple]] = None):
+        """``model.decode_fn`` of this rank's rows: token (B, 1), one
+        position ``pos`` for every row (R6), ``caches`` the rank's block
+        (:meth:`prefill`), advanced in place; (the rank's block of the
+        logits (B, 1, V or V / model), caches). ``specs``: the whole
+        cache's ``sharding.cache_specs``, which say where the rows are
+        whole and the sequence lies over "data" (a B = 1 decode); None:
+        rows split, as :meth:`prefill` leaves them. Never gathers a k or
+        v cache."""
+        out = self({"token": token}, "decode", caches, pos, specs=specs)
+        self.reshard()
+        return out
 
     # -- the state as one rank holds it --
 
@@ -947,7 +1220,7 @@ class ShardedLM(_Sharded, lm.DecoderLM):
 
     def forward(self, batch: Dict[str, torch.Tensor], mode: str = "loss",
                 caches: Optional[lm.Cache] = None, pos: int = 0,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None, specs=None):
         """``lm.loss_fn`` of this rank's rows (aux weight 0.01); with
         ``mode`` "prefill" or "decode", :meth:`prefill`'s or
         :meth:`decode_step`'s work (called through the module, so that
@@ -955,7 +1228,8 @@ class ShardedLM(_Sharded, lm.DecoderLM):
         if mode == "prefill":
             return self._prefill(batch, cache_len)
         if mode == "decode":
-            return self._decode(batch["token"], caches, pos)
+            return self._decode(batch["token"], caches, pos,
+                                self._layout(specs))
         tokens = batch["tokens"]
         x = self._embed(tokens, batch.get("patches"))
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -963,67 +1237,31 @@ class ShardedLM(_Sharded, lm.DecoderLM):
         h = L.apply_norm(self.cfg.norm, x, self.ln_f)
         return self._cross_entropy(h, batch["labels"]) + AUX_WEIGHT * aux
 
-    # -- serving: the sharded prefill and decode steps --
-
-    def _serves(self) -> None:
-        if self.cfg.family not in SERVE_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name} ({self.cfg.family}): the sharded serving "
-                f"step covers the {' and '.join(SERVE_FAMILIES)} families")
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The final norm of x (B, 1, D) times the rank's block of the
-        head: its vocabulary block of the logits where the vocabulary
-        divides over "model", else all of them."""
-        return L.apply_norm(self.cfg.norm, x, self.ln_f) @ self.head()
-
     def _prefill(self, batch, cache_len):
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(tokens, batch.get("patches"))
         positions = torch.arange(S, device=tokens.device)
+        n = {m: sum(k == m for k, _ in self.kinds) for m in ("attn", "mamba")}
         caches: lm.Cache = {}
         for blk, row in zip(self.blocks, self.rows):
-            x, k, v = blk(x, positions, "prefill")
-            for name, t in (("k", k), ("v", v)):
+            x, c = blk(x, positions, "prefill")
+            for name, t in c.items():
                 if name not in caches:
-                    caches[name] = t.new_zeros(
-                        (len(self.blocks), B, cache_len or S) + t.shape[2:])
-                caches[name][row, :, :S] = t
+                    long = (cache_len or S,) if name in ("k", "v") \
+                        else t.shape[1:2]
+                    caches[name] = t.new_zeros((n[blk.mixer], B) + long
+                                               + t.shape[2:])
+                caches[name][row, :, :t.shape[1]] = t
         return self._logits(x[:, -1:, :]), caches
 
-    def _decode(self, token: torch.Tensor, caches: lm.Cache, pos: int):
+    def _decode(self, token: torch.Tensor, caches: lm.Cache, pos: int,
+                layout: Tuple[bool, bool]):
         x = self._embed(token)
         positions = torch.tensor([pos], device=token.device)
         for blk, row in zip(self.blocks, self.rows):
-            x = blk(x, positions, "decode", caches, row, pos)
+            x = blk(x, positions, "decode", caches, row, pos, layout)
         return self._logits(x), caches
-
-    @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor],
-                cache_len: Optional[int] = None):
-        """``lm.prefill`` of this rank's rows (``tokens`` (B, S), a vision
-        arch's ``patches``), forward only: (the rank's block of the
-        last position's logits (B, 1, V or V / model), its block of the
-        cache with k and v of ``cache_len`` (default S) positions, as
-        ``sharding.cache_specs`` gives it). Attention runs the flash
-        kernel; at world 1 on (1, 1) this is ``lm.prefill`` bit for
-        bit."""
-        self._serves()
-        out = self(batch, "prefill", cache_len=cache_len)
-        self.reshard()
-        return out
-
-    @torch.no_grad()
-    def decode_step(self, caches: lm.Cache, token: torch.Tensor, pos: int):
-        """``lm.decode_step`` of this rank's rows: token (B, 1), one
-        position ``pos`` for every row (R6), ``caches`` the rank's block
-        (:meth:`prefill`), advanced in place; (the rank's block of the
-        logits (B, 1, V or V / model), caches). Never gathers a cache."""
-        self._serves()
-        out = self({"token": token}, "decode", caches, pos)
-        self.reshard()
-        return out
 
 
 class ShardedEncDec(_Sharded, seq2seq.EncDecLM):
@@ -1060,7 +1298,16 @@ class ShardedEncDec(_Sharded, seq2seq.EncDecLM):
                     self._plan_attention(blk.xattn, pre + "xattn.", place)
                 self._plan_mlp(blk.mlp, pre + "mlp.")
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], mode: str = "loss",
+                caches: Optional[lm.Cache] = None, pos: int = 0,
+                cache_len: Optional[int] = None, specs=None):
+        """``seq2seq.loss_fn`` of this rank's rows; with ``mode`` "prefill"
+        or "decode", :meth:`prefill`'s or :meth:`decode_step`'s work."""
+        if mode == "prefill":
+            return self._prefill(batch, cache_len)
+        if mode == "decode":
+            return self._decode(batch["token"], caches, pos,
+                                self._layout(specs))
         cfg = self.cfg
 
         def layer(blk, *args):
@@ -1079,6 +1326,64 @@ class ShardedEncDec(_Sharded, seq2seq.EncDecLM):
             x = layer(blk, x, enc_x, positions)
         h = L.apply_norm(cfg.norm, x, self.ln_f)
         return self._cross_entropy(h, batch["labels"])
+
+    # -- serving: seq2seq.prefill and decode_step on this rank's share --
+
+    def _serves(self) -> None:
+        m, Hkv = self.place.m, self.cfg.n_kv_heads
+        if m > 1 and Hkv % m:
+            raise ValueError(
+                f"{self.cfg.name}: {Hkv} kv heads do not divide over {m}: "
+                "an encoder-decoder's serving step keeps a block of kv "
+                "heads (its cache holds no head_dim columns)")
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The encoder's k or v of this rank's rows and kv heads (B, S_enc,
+        hkv, hd) gathered over the model heads, then the batch rows
+        (data, then pod): every rank holds ``ek`` and ``ev`` whole."""
+        if self.dec_blocks[0].xattn.group is not None:
+            t = _gather(t, 2, self.place.model)
+        for g in reversed(self.place.batch):
+            t = _gather(t, 0, g)
+        return t
+
+    def _prefill(self, batch, cache_len):
+        self._serves()
+        cfg = self.cfg
+        x = batch["frames"].to(torch.bfloat16)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for blk in self.enc_blocks:
+            x = blk(x, positions, "prefill")
+        enc_x = L.apply_norm(cfg.norm, x, self.enc_ln_f)
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        x = self._embed(tokens)
+        positions = torch.arange(S, device=tokens.device)
+        caches: lm.Cache = {}
+        for i, blk in enumerate(self.dec_blocks):
+            x, c = blk(x, enc_x, positions, "prefill")
+            c["ek"], c["ev"] = self._whole(c["ek"]), self._whole(c["ev"])
+            for name, t in c.items():
+                if name not in caches:
+                    long = (cache_len or S,) if name in ("k", "v") \
+                        else t.shape[1:2]
+                    caches[name] = t.new_zeros(
+                        (len(self.dec_blocks), t.shape[0]) + long
+                        + t.shape[2:])
+                caches[name][i, :, :t.shape[1]] = t
+        return self._logits(x[:, -1:, :]), caches
+
+    def _decode(self, token: torch.Tensor, caches: lm.Cache, pos: int,
+                layout: Tuple[bool, bool]):
+        self._serves()
+        whole, seq = layout
+        x = self._embed(token)
+        positions = torch.tensor([pos], device=token.device)
+        b, g = token.shape[0], self.place.batch_shard
+        rows = slice(None) if whole else slice(g * b, (g + 1) * b)
+        for i, blk in enumerate(self.dec_blocks):
+            x = blk(x, None, positions, "decode", caches, i, pos, rows, seq)
+        return self._logits(x), caches
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

@@ -24,16 +24,16 @@ against the reference's.
 - One production cell (qwen2.5-3b x train_4k x single_pod_16x16, ~30 s
   on a CPU) through the CLI under the fake group of 256 ranks: its
   JSON holds the reference's keys, and ``workload_demand`` of the port
-  and ``from_dryrun`` of both packages read it. A cell that does not run
-  prints a SKIP line and writes nothing: one out of the sharded step's
-  scope (mamba2-2.7b x long_500k) and one whose shape is not in the
-  arch's ``shapes`` (qwen2.5-3b x long_500k, the reference's line). The
-  serving cells of the dense and MoE archs run
-  (``test_torch_dryrun_serve.py``).
+  and ``from_dryrun`` of both packages read it. mamba2-2.7b x long_500k
+  (a decode of one row, the sharded step's B = 1 layout) runs and
+  writes its file; a cell whose shape is not in the arch's ``shapes``
+  (qwen2.5-3b x long_500k) prints the reference's SKIP line and writes
+  nothing. The serving cells run (``test_torch_dryrun_serve.py``,
+  ``test_torch_dryrun_serve_families.py``).
 - The SSM, hybrid and encoder-decoder archs' production cells at
-  ``train_4k`` through the CLI (three processes at once, 25-45 s each
-  on a CPU): each writes its file, which ``from_dryrun`` of both
-  packages reads; ``decode_32k`` still SKIPs.
+  ``train_4k`` and ``decode_32k`` through the CLI (six processes at
+  once, 25-45 s each at train_4k on a CPU): each writes its file, which
+  ``from_dryrun`` of both packages reads at train_4k.
 """
 import functools
 import json
@@ -379,26 +379,29 @@ def test_cli_production_cell_feeds_workload_demand(tmp_path):
         assert (got.w_same_cube, got.w_ring, got.w_uniform) == \
             (want.w_same_cube, want.w_ring, want.w_uniform)
     assert (want.w_same_cube, want.w_ring) != (0.0, 0.0)
-    skip = tmp_path / "skip"
-    for argv, line in [(["--arch", "mamba2-2.7b", "--shape", "long_500k"],
-                        "SKIP mamba2-2.7b x long_500k"),
-                       (["--arch", "qwen2.5-3b", "--shape", "long_500k"],
-                        "SKIP qwen2.5-3b x long_500k")]:
+    for argv, line, files in [
+            (["--arch", "mamba2-2.7b", "--shape", "long_500k", "--mesh",
+              "single"], "=== mamba2-2.7b x long_500k x single_pod_16x16",
+             ["mamba2-2.7b__long_500k__single_pod_16x16.json"]),
+            (["--arch", "qwen2.5-3b", "--shape", "long_500k"],
+             "SKIP qwen2.5-3b x long_500k", [])]:
+        other = tmp_path / argv[1]
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-             "--device", "cpu", "--outdir", str(skip)],
+             "--device", "cpu", "--outdir", str(other)],
             env=_env(), capture_output=True, text=True, timeout=120)
         assert out.returncode == 0 and out.stdout.startswith(line), \
             out.stdout + out.stderr[-2000:]
-        assert os.listdir(skip) == []
+        assert "FAIL" not in out.stdout
+        assert sorted(os.listdir(other)) == files
 
 
 def test_cli_runs_the_other_families_at_train_4k(tmp_path):
     """mamba2-2.7b, jamba-v0.1-52b and seamless-m4t-medium at train_4k on
     single_pod_16x16, each CLI in a process of its own, all at once: no
     SKIP, the reference's file written, and ``from_dryrun`` of both
-    packages reads it; at decode_32k each still SKIPs and writes
-    nothing."""
+    packages reads it; at decode_32k (started beside them) each runs
+    too and writes its file."""
     from repro.core import demand as JD
     from repro_torch.core import demand as PDM
 
@@ -408,8 +411,9 @@ def test_cli_runs_the_other_families_at_train_4k(tmp_path):
              arch, "--shape", shape, "--mesh", "single", "--device", "cpu",
              "--outdir", str(outdir)], env=_env(), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
+    serve = tmp_path / "serve"
     procs = {a: cli(a, "train_4k", tmp_path) for a in FAMILY_ARCHS}
-    skip = tmp_path / "skip"
+    decodes = {a: cli(a, "decode_32k", serve) for a in FAMILY_ARCHS}
     for arch, p in procs.items():
         out = p.communicate(timeout=600)[0]
         assert p.returncode == 0, out[-4000:]
@@ -426,13 +430,15 @@ def test_cli_runs_the_other_families_at_train_4k(tmp_path):
         for d in got:
             assert (d.w_same_cube, d.w_ring, d.w_uniform) == \
                 (want.w_same_cube, want.w_ring, want.w_uniform)
-        p = cli(arch, "decode_32k", skip)
-        out = p.communicate(timeout=120)[0]
+        p = decodes[arch]
+        out = p.communicate(timeout=600)[0]
         assert p.returncode == 0 and out.startswith(
-            f"SKIP {arch} x decode_32k"), out[-2000:]
+            f"=== {arch} x decode_32k x single_pod_16x16"), out[-2000:]
+        assert "SKIP" not in out and "FAIL" not in out, out[-4000:]
     assert sorted(f.name for f in tmp_path.glob("*.json")) == sorted(
         f"{a}__train_4k__single_pod_16x16.json" for a in FAMILY_ARCHS)
-    assert not skip.exists() or os.listdir(skip) == []
+    assert sorted(os.listdir(serve)) == sorted(
+        f"{a}__decode_32k__single_pod_16x16.json" for a in FAMILY_ARCHS)
 
 
 def test_dryrun_needs_cuda_by_default():

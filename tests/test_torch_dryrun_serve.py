@@ -20,14 +20,14 @@ kernel as the custom op that fake tensors trace.
 - One production serving cell (qwen2.5-3b x decode_32k x
   single_pod_16x16, seconds on a CPU) through the CLI under the fake
   group of 256 ranks: the reference's file name and keys, ``chips``
-  256, no flash launch; ``from_dryrun`` of both packages reads it. A
-  family the serving step does not cover yet (mamba2-2.7b x decode_32k)
-  prints a SKIP line and writes nothing; a shape not in the arch's
-  ``shapes`` (qwen2.5-3b x long_500k) prints the reference's SKIP line
-  with the arch's notes.
-- ``in_scope`` and ``--shape all`` over the registry: every shape of
-  each arch's ``shapes`` for the dense and MoE archs, ``train_4k`` only
-  for the other families.
+  256, no flash launch; ``from_dryrun`` of both packages reads it. An
+  SSM family's serving cell (mamba2-2.7b x decode_32k) runs and writes
+  its file (``test_torch_dryrun_serve_families.py`` holds those
+  families' cells to XLA's); a shape not in the arch's ``shapes``
+  (qwen2.5-3b x long_500k) prints the reference's SKIP line with the
+  arch's notes and writes nothing.
+- ``--shape all`` over the registry: every shape of each arch's
+  ``shapes``, 64 files on the two meshes, no SKIP line.
 """
 import functools
 import io
@@ -49,8 +49,6 @@ from repro_torch.parallel import api as PAPI
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SERVE_ARCHS = ("qwen2.5-3b", "deepseek-moe-16b")
 KINDS = ("prefill", "decode")
-DENSE_MOE = ("qwen2.5-3b", "gemma-7b", "stablelm-12b", "qwen1.5-32b",
-             "internvl2-2b", "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
 REFERENCE = """
 import json, sys
 import repro.launch.dryrun as D
@@ -234,42 +232,40 @@ def test_cli_decode_cell_feeds_from_dryrun(tmp_path):
             (want.w_same_cube, want.w_ring, want.w_uniform)
 
 
-@pytest.mark.parametrize("argv, line", [
-    (("--arch", "mamba2-2.7b", "--shape", "decode_32k"),
-     "SKIP mamba2-2.7b x decode_32k: not in the port's sharded step yet"),
+@pytest.mark.parametrize("argv, lines, files", [
+    (("--arch", "mamba2-2.7b", "--shape", "decode_32k", "--mesh", "single"),
+     ["=== mamba2-2.7b x decode_32k x single_pod_16x16"],
+     ["mamba2-2.7b__decode_32k__single_pod_16x16.json"]),
     (("--arch", "qwen2.5-3b", "--shape", "long_500k"),
-     "SKIP qwen2.5-3b x long_500k: "
-     + preg.get_config("qwen2.5-3b").notes)])
-def test_cli_skips_write_nothing(argv, line, tmp_path):
+     ["SKIP qwen2.5-3b x long_500k: "
+      + preg.get_config("qwen2.5-3b").notes], [])])
+def test_cli_skips_write_nothing(argv, lines, files, tmp_path):
+    """A shape not in the arch's ``shapes`` prints the reference's SKIP
+    line and writes nothing; a serving cell of the SSM family, which the
+    sharded step once left out with a SKIP line, runs and writes its
+    file."""
     out = _cli(*argv, "--outdir", str(tmp_path), timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.splitlines() == [line]
-    assert os.listdir(tmp_path) == []
+    assert [ln for ln in out.stdout.splitlines()
+            if ln.startswith(("SKIP", "==="))] == lines
+    assert "FAIL" not in out.stdout
+    assert sorted(os.listdir(tmp_path)) == files
 
 
 def test_shape_all_runs_each_archs_shapes():
     """Every arch's cells under ``--shape all``, as the reference's CLI
-    walks each arch's ``shapes``: the 7 dense and MoE archs at their 3
-    shapes, the other three families at train_4k, and one SKIP line (not
-    ported yet) for each of those families' 8 serving and long_500k
-    cells. ``in_scope`` says the same of every (arch, shape), and also
-    leaves out the B = 1 long_500k layout for every family."""
+    walks each arch's ``shapes``: all 32 (arch, shape) cells of the
+    registry, every family at each of its shapes (long_500k for
+    mamba2-2.7b and jamba-v0.1-52b), 64 files on the two meshes, and no
+    SKIP line."""
     buf = io.StringIO()
     with redirect_stdout(buf):
         cells = list(PD._arch_shapes(preg.list_archs(), "all", None))
     want = [(a, s) for a in preg.list_archs()
-            for s in preg.get_config(a).shapes
-            if s == "train_4k" or a in DENSE_MOE]
+            for s in preg.get_config(a).shapes]
     assert [(a, s.name) for a, s in cells] == want
-    assert len(want) == 7 * 3 + 3
-    skips = [(a, s) for a in preg.list_archs()
-             for s in preg.get_config(a).shapes if (a, s) not in want]
-    assert len(skips) == 8
-    assert buf.getvalue().splitlines() == [
-        f"SKIP {a} x {s}: not in the port's sharded step yet"
-        for a, s in skips]
-    for a in preg.list_archs():
-        cfg = preg.get_config(a).model
-        for s, shape in PB.SHAPES.items():
-            assert PD.in_scope(cfg, shape) == (
-                s == "train_4k" or (a in DENSE_MOE and s != "long_500k"))
+    assert len(want) == 7 * 3 + 3 * 3 + 2
+    assert len(want) * len(PD.MESH_NAMES) == 64
+    assert {a for a, s in want if s == "long_500k"} == {"mamba2-2.7b",
+                                                       "jamba-v0.1-52b"}
+    assert buf.getvalue() == ""

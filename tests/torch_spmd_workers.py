@@ -1,5 +1,6 @@
-"""The processes of ``test_torch_spmd.py``, ``test_torch_spmd_families.py``
-and ``test_torch_spmd_serve.py`` (no tests here): each function
+"""The processes of ``test_torch_spmd.py``, ``test_torch_spmd_families.py``,
+``test_torch_spmd_serve.py`` and ``test_torch_spmd_serve_families.py``
+(no tests here): each function
 runs in a rank started by ``torch_dp_workers.run`` (gloo, a ``file://``
 rendezvous) or in the test process itself with no group, and returns
 what it found. Imports only torch and the port."""
@@ -16,6 +17,7 @@ from repro_torch.launch.train import extra_inputs
 from repro_torch.models import layers as PL, model as PM
 from repro_torch.optim import adamw
 from repro_torch.parallel import api, spmd
+from repro_torch.parallel.sharding import cache_specs
 from repro_torch.train import loop as PT
 
 B, S, STEPS = 4, 32, 3
@@ -65,13 +67,20 @@ CASES = {
 # the cases of the dense and MoE LM archs, and of the other families
 LM_CASES = tuple(c for c in CASES if CASES[c][0] not in FAMILY_ARCHS)
 FAMILY_CASES = tuple(c for c in CASES if CASES[c][0] in FAMILY_ARCHS)
+# the cases of a B = 1 decode over a kv cache whose sequence lies over
+# "data": jamba's super-block (2 kv heads, one a model rank), and with one
+# kv head, which does not divide over "model", so that the cache's
+# head_dim columns lie over "model" too (jamba-v0.1-52b's 8 kv heads over
+# 16 at long_500k)
+SERVE_CASES = {"jamba-v0.1-52b-kv1": ("jamba-v0.1-52b", {"n_kv_heads": 1})}
+SEQ_CASES = ("jamba-v0.1-52b", "jamba-v0.1-52b-kv1")
 
 
 def smoke(case: str, registry=preg):
     """The case's smoke config (``registry``: the port's, or the
     reference's for the same case), with the per-shard dispatch for an
     MoE: the routing the sharded step does on each data shard."""
-    arch, changes = CASES[case]
+    arch, changes = {**CASES, **SERVE_CASES}[case]
     cfg = registry.get_config(arch).smoke_model()
     return dataclasses.replace(cfg, opt_moe_local_dispatch=bool(
         cfg.n_experts), **changes)
@@ -232,9 +241,12 @@ def world_one(rank, world_size, archs=ARCHS):
 # --- serving: the sharded prefill and decode steps -------------------------
 
 # a prompt of S tokens into caches of S + SERVE_STEPS positions, then
-# SERVE_STEPS teacher-forced decode steps
+# SERVE_STEPS teacher-forced decode steps; the SSM, hybrid and
+# encoder-decoder cases take FAMILY_STEPS steps of the reference's greedy
+# tokens
 SERVE_STEPS = 2
 CACHE_LEN = S + SERVE_STEPS
+FAMILY_STEPS = 3
 
 
 def serve_inputs(case: str):
@@ -249,25 +261,30 @@ def _clone(caches):
     return {n: t.clone() for n, t in caches.items()}
 
 
-def serve_one_process(case: str, shape=(2, 2), init_dir=None, follow=None):
+def serve_one_process(case: str, shape=(2, 2), init_dir=None, follow=None,
+                      tokens=None):
     """``model.prefill_fn`` into CACHE_LEN positions, then SERVE_STEPS
     ``decode_fn`` steps, in one process under a described mesh of
     ``shape`` (an MoE's prefill dispatches per batch shard, its decode
     over the whole batch, as the reference's), from :func:`initial`: the
     logits of each step, the caches after the prefill and after the last
     step, and every routing call. ``follow`` (a list of experts (T, K),
-    one a routing call in call order) makes call i choose ``follow[i]``."""
+    one a routing call in call order) makes call i choose ``follow[i]``.
+    ``tokens`` (B, n): the decode steps' tokens in place of
+    :func:`serve_inputs`' (n steps, the cache n longer than the
+    prompt)."""
     cfg = smoke(case)
     model = initial(case, init_dir)
-    prompt, tokens = serve_inputs(case)
+    prompt, teach = serve_inputs(case)
+    tokens = teach if tokens is None else tokens
     log = []
     orig = _route_log(log, None if follow is None else follow.__getitem__)
     try:
         with api.mesh_context(api.Mesh(NAMES, shape)), torch.no_grad():
             logits, caches = PM.prefill_fn(cfg, model, prompt,
-                                           cache_len=CACHE_LEN)
+                                           cache_len=S + tokens.shape[1])
             out = {"logits": [logits], "prefill_caches": _clone(caches)}
-            for i in range(SERVE_STEPS):
+            for i in range(tokens.shape[1]):
                 logits, caches = PM.decode_fn(cfg, model, caches,
                                               tokens[:, i:i + 1], S + i)
                 out["logits"].append(logits)
@@ -278,20 +295,21 @@ def serve_one_process(case: str, shape=(2, 2), init_dir=None, follow=None):
 
 
 def serve_sharded(rank, world, case: str, shape, init_dir=None,
-                  follow=None):
-    """The same through ``ShardedLM.prefill`` and ``decode_step`` on a mesh
-    of ``shape`` over the group's ranks, from the whole model of
-    :func:`initial` cut by ``shard_state``, on this rank's rows: its
-    blocks of each step's logits and of the caches, its routing calls,
-    the collectives of each step (``spmd.Recorder``) and its mesh
-    position. ``follow(k, g)``: the experts routing call k of batch
-    shard g chooses."""
+                  follow=None, tokens=None):
+    """The same through the sharded model's ``prefill`` and
+    ``decode_step`` on a mesh of ``shape`` over the group's ranks, from
+    the whole model of :func:`initial` cut by ``shard_state``, on this
+    rank's rows: its blocks of each step's logits and of the caches, its
+    routing calls, the collectives of each step (``spmd.Recorder``) and
+    its mesh position. ``follow(k, g)``: the experts routing call k of
+    batch shard g chooses; ``tokens`` as :func:`serve_one_process`'s."""
     cfg = smoke(case)
     mesh = make_mesh(NAMES, shape)
     model = spmd.build(cfg, mesh, "cpu", spmd.shard_state(
         initial(case, init_dir), mesh, rank))
-    prompt, tokens = serve_inputs(case)
-    rows = spmd.rank_rows(dict(prompt, next=tokens), model.place)
+    prompt, teach = serve_inputs(case)
+    rows = spmd.rank_rows(dict(prompt, next=teach if tokens is None
+                               else tokens), model.place)
     tokens = rows.pop("next")
     log, logs = [], []
     g = model.place.batch_shard
@@ -300,10 +318,11 @@ def serve_sharded(rank, world, case: str, shape, init_dir=None,
     try:
         rec = spmd.Recorder()
         with rec:
-            logits, caches = model.prefill(rows, cache_len=CACHE_LEN)
+            logits, caches = model.prefill(rows,
+                                           cache_len=S + tokens.shape[1])
         logs.append(rec.log)
         out = {"logits": [logits], "prefill_caches": _clone(caches)}
-        for i in range(SERVE_STEPS):
+        for i in range(tokens.shape[1]):
             rec = spmd.Recorder()
             with rec:
                 logits, caches = model.decode_step(
@@ -320,16 +339,19 @@ def serve_sharded(rank, world, case: str, shape, init_dir=None,
 def serve_world(rank, world_size, shape, follows, cases=LM_CASES):
     """Each of ``cases`` served sharded on ``shape`` from the reference's
     weights; an MoE's again choosing the reference's experts (under
-    "followed"; ``follows[case][k][g]``: call k's experts of shard g)."""
+    "followed"; ``follows[case][k][g]``: call k's experts of shard g).
+    ``follows["tokens"][case]``, where given: the decode steps' tokens."""
     init_dir = follows["init_dir"]
     out = {}
     for c in cases:
-        out[c] = serve_sharded(rank, world_size, c, shape, init_dir)
+        tokens = follows.get("tokens", {}).get(c)
+        out[c] = serve_sharded(rank, world_size, c, shape, init_dir,
+                               tokens=tokens)
         if smoke(c).n_experts:
             want = follows[c]
             out[c]["followed"] = serve_sharded(
                 rank, world_size, c, shape, init_dir,
-                follow=lambda k, g: want[k][g])
+                follow=lambda k, g: want[k][g], tokens=tokens)
     return out
 
 
@@ -353,4 +375,80 @@ def serve_world_one(rank, world_size, archs=ARCHS):
                 plain["logits"].append(logits)
         plain["caches"] = caches
         out["plain"][arch] = plain
+    return out
+
+
+# a B = 1 decode: the first row of the prompt, SEQ_STEPS greedy steps, in a
+# cache of SEQ_LEN positions, which splits over "data"
+SEQ_STEPS, SEQ_LEN = 3, 2 * S
+
+
+def seq_plain(case: str):
+    """``case`` from seed 0 at B = 1 in one process with no group: the
+    plain prefill of :func:`serve_inputs`' first row into a cache of
+    SEQ_LEN positions, then SEQ_STEPS greedy ``decode_fn`` steps: the
+    logits, the tokens (1, 1) a step, the caches after the prefill and
+    after the last step, and the decode steps' routing calls."""
+    cfg = dataclasses.replace(smoke(case), opt_moe_local_dispatch=False)
+    model = PM.init_params(cfg, 0, "cpu")
+    prompt, _ = serve_inputs(case)
+    prompt = {k: v[:1] for k, v in prompt.items()}
+    log = []
+    orig = _route_log(log)
+    try:
+        with torch.no_grad():
+            logits, caches = PM.prefill_fn(cfg, model, prompt,
+                                           cache_len=SEQ_LEN)
+            out = {"logits": [], "tokens": [],
+                   "prefill_caches": _clone(caches)}
+            del log[:]
+            for i in range(SEQ_STEPS):
+                tok = logits.argmax(-1)
+                out["tokens"].append(tok)
+                logits, caches = PM.decode_fn(cfg, model, caches, tok, S + i)
+                out["logits"].append(logits)
+    finally:
+        PL.moe_route = orig
+    out.update(caches=caches, routes=log)
+    return out
+
+
+def serve_seq_split(rank, world_size, shape, plains):
+    """Each case of ``plains`` (``case``: its :func:`seq_plain`) from seed
+    0: the plain run's tokens through ``decode_step`` on a mesh of
+    ``shape``, from its prefill's caches cut to this rank's block under
+    ``cache_specs`` (rows whole, the kv cache's sequence over "data"),
+    as ``shard_state`` cuts the weights: this rank's blocks of the
+    logits and caches, each step's collectives, its routing calls and
+    its mesh position; and again with each routing call choosing the
+    plain run's experts (under "followed")."""
+    out = {}
+    for case, plain in plains.items():
+        cfg = dataclasses.replace(smoke(case), opt_moe_local_dispatch=False)
+        mesh = make_mesh(NAMES, shape)
+        model = spmd.build(cfg, mesh, "cpu", spmd.shard_state(
+            PM.init_params(cfg, 0, "cpu"), mesh, rank))
+        specs = cache_specs(plain["prefill_caches"], mesh)
+        for side, follow in ((case, None),
+                             ("followed", lambda i: plain["routes"][i][0])):
+            mine = {n: spmd.cut(t, specs[n], mesh, model.place.at).clone()
+                    for n, t in plain["prefill_caches"].items()}
+            got = {"logits": [], "collectives": [], "routes": [],
+                   "at": model.place.at}
+            orig = _route_log(got["routes"], follow)
+            try:
+                for i, tok in enumerate(plain["tokens"]):
+                    rec = spmd.Recorder()
+                    with rec:
+                        logits, mine = model.decode_step(mine, tok, S + i,
+                                                         specs)
+                    got["logits"].append(logits)
+                    got["collectives"].append(rec.log)
+            finally:
+                PL.moe_route = orig
+            got["caches"] = mine
+            if side == case:
+                out[case] = got
+            else:
+                out[case]["followed"] = got
     return out
